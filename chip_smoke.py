@@ -19,7 +19,12 @@ of JAX and nothing of the JAX package.  Phases, each fatal on failure:
    the block, the channelizer GEMMs, K1 alone on each block, the plain
    demod on the last block; K1's bound; a torch.profiler view of the K
    blocks by kernel;
-6. the kernels line, the JSON kernels line, the card line and the result.
+6. chain probe K2: the probe's own entry point (bench_chain_probe.main, its
+   full W = 2000, L = 40, K = 4, REPS = 5) with its launch counter at 0, for
+   the three kinds; then on one block of its inputs per kind the kernel
+   against its plain version, bit for bit, the plain version timed; its
+   bound; the probe's us/step beside K1's;
+7. the kernels line, the JSON kernels line, the card line and the result.
 """
 
 from __future__ import annotations
@@ -38,6 +43,10 @@ ATOL = 1e-4  # audio / IQ / float state; flags and int/bool state exact
 BANK_ACCUMULATORS = ("fast.q1", "fast.q2", "slow.q1", "slow.q2")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+# latency of a float32 FMUL or FADD that waits on the one before, in cycles:
+# the figure microbenchmark studies report from Volta to Hopper (Jia et al.
+# 2018, Luo et al. 2024), not measured here; it sets K2's latency bound
+FP32_DEP_LATENCY_CYCLES = 4
 # float operations of one demod step for one channel outside the Goertzel
 # banks (counted from csrc/demod_step.cuh: squelch ~25, derotation ~12,
 # lowpass ~14, magnitude 4, post-filter MAs ~8, AM or NFM ~20, notch 9,
@@ -49,12 +58,35 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
+def smi(field: str) -> str:
     r = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return r.stdout.strip().splitlines()[0]
+
+
+def sass_ops(path, ops=("FMUL", "FADD", "FFMA")) -> dict:
+    """Per kernel in a built library, how many of ``ops`` its SASS holds
+    (cuobjdump); empty where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, timeout=120, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return {}
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = counts.setdefault(m.group(1), dict.fromkeys(ops, 0))
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?P\d+\s+)?([A-Z0-9]+)", ln)
+        if fn is not None and m and m.group(1) in fn:
+            fn[m.group(1)] += 1
+    return counts
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -272,6 +304,7 @@ def phase_main_path(device, card: str) -> dict:
         channel_msps=C_FLAGSHIP * W * hop / block_s / 1e6,
         realtime_factor=(W / 16000) / block_s,
         k1_ms=k1_mean,
+        k1_no_ctcss_ms=sum(k1_no_ctcss) / K_BLOCKS,
         gemm_ms=gemm_ms,
         plain_ms=plain_ms,
         bound_ms=bound_ms,
@@ -319,6 +352,89 @@ def profile_chain(run_chain, card: str) -> None:
         log(f"  {ms:9.3f} ms  x{n:<4d} {key[:110]}")
 
 
+def probe_bound(x, kind: str, clock_mhz: float) -> tuple[float, str, float, str]:
+    """(bound_ms, bound_by, latency_ms, reckoning) of K2 on one block.
+
+    Bytes: the [2, SUBL, 128] tile read once and written once.  Operations:
+    two float32 operations a link, W * L links a trip, on each chain of each
+    lane.  Neither binds: each thread's W * L * 2 operations depend each on
+    the one before, so the least time is that chain at the dependent
+    latency, at the card's highest SM clock."""
+    from rtlsdr_airband_tpu_torch.scripts import bench_chain_probe as probe
+
+    W, L = probe.W, probe.L
+    nbytes = 2 * x.numel() * x.element_size()
+    flops = probe.CHAINS[kind] * (x.numel() // 2) * W * L * 2
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS * 1e3
+    latency_ms = W * L * 2 * FP32_DEP_LATENCY_CYCLES / (clock_mhz * 1e6) * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    how = (f"{nbytes} B / 3.35 TB/s = {bytes_ms:.6f} ms; {flops} flop / 67 TFLOP/s = {ops_ms:.6f} ms; "
+           f"dependency chain W*L*2 = {W * L * 2} operations x {FP32_DEP_LATENCY_CYCLES} cycles / {clock_mhz:.0f} MHz "
+           f"= {latency_ms:.6f} ms")
+    return max(bytes_ms, ops_ms), by, latency_ms, how
+
+
+def phase_probe(device, card: str, t: dict) -> dict:
+    """K2 through the probe's entry point, then against its plain version."""
+    import contextlib
+    import io
+
+    import torch
+
+    from rtlsdr_airband_tpu_torch.scripts import bench_chain_probe as probe
+
+    out = io.StringIO()
+    probe.LAUNCHES = 0
+    with contextlib.redirect_stdout(out):
+        rc = probe.main(device)
+    launches = probe.LAUNCHES
+    lines = out.getvalue().splitlines()
+    if rc != 0 or not lines:
+        raise AssertionError(f"bench_chain_probe.main exited {rc}")
+    res = json.loads(lines[-1])
+    want_launches = 3 * (probe.REPS + 1) * probe.K
+    if launches != want_launches:
+        raise AssertionError(f"the probe launched K2 {launches} times, expected {want_launches}")
+    if lines[0] != card or res["device"] != torch.cuda.get_device_name(device):
+        raise AssertionError(f"the probe ran on {lines[0]!r} / {res['device']!r}, not on {card!r}")
+    kinds = res["kinds"]
+    log(f"probe (bench_chain_probe.main, W={res['W']} L={res['L']} K={probe.K} REPS={probe.REPS}), K2 launches {launches}: "
+        + "; ".join(f"{k} {v['ms_per_block']:.4f} ms/block {v['us_per_step']:.4f} us/step (SUBL {v['subl']})" for k, v in kinds.items()))
+    log(f"probe: chain2_vs_chain1 {res['chain2_vs_chain1']:.4f} wide_vs_chain1 {res['wide_vs_chain1']:.4f}; {res['verdict']}")
+
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
+    err, plain_ms, bounds = 0.0, {}, {}
+    for kind, xs in probe.probe_inputs(device).items():
+        x = xs[0]
+        got = probe.chain_probe(x, kind, probe.W, probe.L)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = probe.chain_probe_plain(x, kind, probe.W, probe.L)
+        end.record()
+        end.synchronize()
+        plain_ms[kind] = start.elapsed_time(end)
+        diff = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K2 {kind}: kernel differs from the plain version (max |diff| {diff:.3e}, "
+                                 f"{int((got != want).sum().item())} of {got.numel()} elements)")
+        err = max(err, diff)
+        bounds[kind] = probe_bound(x, kind, clock_mhz)
+        log(f"K2 {kind}: equal to the plain version bit for bit (both rows, {got.numel()} elements); "
+            f"plain {plain_ms[kind]:.1f} ms; bound {bounds[kind][0]:.6f} ms ({bounds[kind][1]}), "
+            f"latency bound {bounds[kind][2]:.6f} ms; {bounds[kind][3]}")
+    c1_ms = kinds["chain1"]["ms_per_block"]
+    if c1_ms < 0.5 * bounds["chain1"][2]:
+        raise AssertionError(f"chain1 took {c1_ms:.4f} ms, under half its latency bound: the chain was optimised away")
+    W1 = W_FLAGSHIP
+    log(f"step [{card}]: K2 chain1 {kinds['chain1']['us_per_step']:.4f} us (latency bound "
+        f"{bounds['chain1'][2] / res['W'] * 1e3:.4f} us at {FP32_DEP_LATENCY_CYCLES} cycles, {clock_mhz:.0f} MHz); "
+        f"K1 {t['k1_ms'] / W1 * 1e3:.4f} us with the CTCSS banks, {t['k1_no_ctcss_ms'] / W1 * 1e3:.4f} us without "
+        f"({t['k1_no_ctcss_ms'] / W1 * 1e3 / kinds['chain1']['us_per_step']:.2f}x the 40-link chain)")
+    return dict(launches=launches, err=err, ms=c1_ms, plain_ms=plain_ms["chain1"], bound_ms=bounds["chain1"][0],
+                bound_by=bounds["chain1"][1], latency_bound_ms=bounds["chain1"][2])
+
+
 def main() -> int:
     try:
         import torch
@@ -336,7 +452,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
-    card = card_line()
+    card = smi("name,power.limit")
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; nvidia-smi: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
@@ -345,14 +461,21 @@ def main() -> int:
     for src, b in built.items():
         regs = [ln.strip() for ln in b.log.splitlines() if "registers" in ln or "spill" in ln]
         log(f"build {src}: {b.seconds:.1f} s -> {b.path.name}; " + " | ".join(regs))
+    # K2's chains must survive the compiler: 2 * L dependent FMUL/FADD a
+    # trip (times the W loop's unroll) and no FFMA under --fmad=false
+    for fn, n in sass_ops(built["chain_probe.cu"].path).items():
+        log(f"sass {fn[-40:]}: {n}")
     log(f"build total: {time.perf_counter() - t0:.1f} s")
 
     err = phase_parity(device)
     phase_snr(device)
     t = phase_main_path(device, card)
+    p = phase_probe(device, card, t)
 
     log(f"kernels: K1 demod (csrc/demod.cu) launches {t['launches']} parity ok "
-        f"(audio {err['audio']:.3e}, iq {err['iq']:.3e}, flags exact, int/bool state exact, bit for bit: {err['bitwise']})")
+        f"(audio {err['audio']:.3e}, iq {err['iq']:.3e}, flags exact, int/bool state exact, bit for bit: {err['bitwise']}); "
+        f"K2 chain_probe (csrc/chain_probe.cu) launches {p['launches']} equal bit for bit in chain1, chain2, chain1w "
+        f"(max |diff| {p['err']}), latency bound {p['latency_bound_ms']:.6f} ms")
     log(json.dumps({"kernels": [{
         "name": "demod",
         "route": "cuda",
@@ -364,6 +487,19 @@ def main() -> int:
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "chain_probe",
+        "route": "cuda",
+        "source": "rtlsdr_airband_tpu_torch/csrc/chain_probe.cu",
+        "replaces": "scripts/bench_chain_probe.py:91",
+        "launches": p["launches"],
+        "max_abs_err": p["err"],
+        "ms": p["ms"],
+        "plain_ms": p["plain_ms"],
+        "bound_ms": p["bound_ms"],
+        "bound_by": p["bound_by"],
+        "latency_bound_ms": p["latency_bound_ms"],
         "library_ms": None,
     }]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,4 +1,5 @@
-"""The nvcc-built demod kernel K1 against its plain PyTorch version, on the card.
+"""The nvcc-built kernels against their plain PyTorch versions, on the card:
+the demod kernel K1 and the chain-latency probe K2.
 
 Needs an NVIDIA GPU and nvcc; skips without a card.  The file imports
 neither jax nor the JAX package, so it also runs on a machine that has
@@ -6,8 +7,9 @@ only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Bars as in tests/test_demod_pallas.py: audio and IQ within 1e-4 absolute,
-open flags and int/bool state exact, float state within 1e-4.
+K1's bars as in tests/test_demod_pallas.py: audio and IQ within 1e-4
+absolute, open flags and int/bool state exact, float state within 1e-4.
+K2 rounds every operation as its plain version does: equal bit for bit.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ from rtlsdr_airband_tpu_torch.constants import AGC_EXTRA
 from rtlsdr_airband_tpu_torch.ops import demod_cuda
 from rtlsdr_airband_tpu_torch.ops.demod import OPEN, demod_block
 from rtlsdr_airband_tpu_torch.ops.params import ChannelSpec, init_demod_state, make_channel_params
+from rtlsdr_airband_tpu_torch.scripts import bench_chain_probe as probe
 from torch_port_common import ATOL, CENTER, FS, N, SPEC_KW, assert_close
 
 
@@ -94,3 +97,31 @@ def test_launcher_rejects_cpu_state_with_cuda_data(cuda_device):
     with pytest.raises(ValueError, match="cpu"):
         demod_cuda.demod_block_cuda(params, st, m, q)
     assert demod_cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind, subl, w_trips, links",
+    [("chain1", 32, 20, 40), ("chain2", 32, 20, 4), ("chain1w", 64, 20, 40), ("chain2", 1, 7, 40), ("chain1", 32, 2000, 40)],
+)
+def test_chain_probe_matches_plain_on_card(cuda_device, kind, subl, w_trips, links):
+    """Both rows, every element, bit for bit; the last case is the probe's
+    own W and L; SUBL = 1 is two 64-thread blocks."""
+    x = torch.from_numpy(np.random.default_rng(8).normal(size=(2, subl, 128)).astype(np.float32)).to(cuda_device)
+    before = probe.LAUNCHES
+    got = probe.chain_probe(x, kind, w_trips, links)
+    assert probe.LAUNCHES == before + 1
+    want = probe.chain_probe_plain(x, kind, w_trips, links)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and torch.equal(got, want)
+    assert torch.equal(got[1], x[1]) == (kind != "chain2")
+
+
+@pytest.mark.cuda
+def test_chain_probe_rejects_what_the_kernel_does_not_take(cuda_device):
+    before = probe.LAUNCHES
+    with pytest.raises(ValueError, match="contiguous"):
+        probe.chain_probe(torch.zeros(2, 128, 32, device=cuda_device).transpose(1, 2), "chain1", 5)
+    with pytest.raises(ValueError, match="compiled"):
+        probe.chain_probe(torch.zeros(2, 32, 128, device=cuda_device), "chain1", 5, links=7)
+    assert probe.LAUNCHES == before

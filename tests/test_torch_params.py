@@ -2,10 +2,12 @@
 ``rtlsdr_airband_tpu_torch`` against the JAX package, plus the port's
 import boundary (it imports neither jax nor the JAX package)."""
 
+import fnmatch
 import os
 import re
 import subprocess
 import sys
+import tomllib
 
 import jax.numpy as jnp
 import numpy as np
@@ -114,6 +116,18 @@ def test_port_import_pulls_in_no_jax():
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_package_data_ships_every_kernel_source():
+    """``pip install .`` must carry csrc/, or an installed port cannot build
+    its kernels."""
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as fh:
+        globs = tomllib.load(fh)["tool"]["setuptools"]["package-data"]["rtlsdr_airband_tpu_torch"]
+    csrc = os.path.join(ROOT, "rtlsdr_airband_tpu_torch", "csrc")
+    sources = [f"csrc/{f}" for f in sorted(os.listdir(csrc))]
+    assert {"csrc/demod.cu", "csrc/chain_probe.cu", "csrc/demod_step.cuh", "csrc/demod_host.cpp"} <= set(sources)
+    for src in sources:
+        assert any(fnmatch.fnmatchcase(src, g) for g in globs), f"{src} matches none of {globs}"
 
 
 def test_port_sources_import_nothing_of_jax():
