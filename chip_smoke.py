@@ -7,17 +7,24 @@ without one, and without the port's package beside it.  It imports nothing
 of JAX and nothing of the JAX package.  Phases, each fatal on failure:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc builds every kernel from csrc/ (one process per source);
+2. build: nvcc builds every kernel from csrc/ (one process per source); per
+   kernel its registers and spills (ptxas), K1's dynamic shared memory at
+   each block width, its SASS memory instructions and the instructions of
+   its step loop (cuobjdump);
 3. parity: on the 8192-channel active scene (build_flagship_stream, W = 2000,
    4 blocks: squelch opens and closes on the carriers, CTCSS banks decide)
-   the demod kernel K1 against its plain PyTorch version on the same inputs;
+   the demod kernel K1, at its default block width, against its plain
+   PyTorch version on the same inputs: every output and state leaf equal
+   bit for bit;
 4. channelizer: torch.matmul in float32 against float64, SNR >= 80 dB at
    C = 8192, N = 512, W = 2000;
 5. main path: build_flagship(8192) on the card, K = 8 distinct blocks
    through the FlagshipBlock with the launch counters at 0, then timings
    with CUDA events on the same blocks and states (warm-up, min over reps):
-   the block, the channelizer GEMMs, K1 alone on each block, the plain
-   demod on the last block; K1's bound; a torch.profiler view of the K
+   the block, the channelizer GEMMs, K1 alone on each block at both block
+   widths and the first (device-memory) design of K1, each with and without
+   the CTCSS banks, all equal bit for bit; the plain demod on the last
+   block; K1's bytes bound and issue bound; a torch.profiler view of the K
    blocks by kernel;
 6. chain probe K2: the probe's own entry point (bench_chain_probe.main, its
    full W = 2000, L = 40, K = 4, REPS = 5) with its launch counter at 0, for
@@ -39,7 +46,6 @@ import numpy as np
 W_FLAGSHIP = 2000
 C_FLAGSHIP = 8192
 K_BLOCKS = 8
-ATOL = 1e-4  # audio / IQ / float state; flags and int/bool state exact
 BANK_ACCUMULATORS = ("fast.q1", "fast.q2", "slow.q1", "slow.q2")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -66,8 +72,8 @@ def smi(field: str) -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def sass_ops(path, ops=("FMUL", "FADD", "FFMA")) -> dict:
-    """Per kernel in a built library, how many of ``ops`` its SASS holds
+def sass_listing(path) -> dict:
+    """Per kernel in a built library, its SASS as [(address, opcode, line)]
     (cuobjdump); empty where the toolkit has no cuobjdump."""
     import re
     import shutil
@@ -77,16 +83,58 @@ def sass_ops(path, ops=("FMUL", "FADD", "FFMA")) -> dict:
         sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, timeout=120, check=True).stdout
     except (OSError, subprocess.CalledProcessError):
         return {}
-    counts, fn = {}, None
+    listing, fn = {}, None
     for ln in sass.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            fn = counts.setdefault(m.group(1), dict.fromkeys(ops, 0))
+            fn = listing.setdefault(m.group(1), [])
             continue
-        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?P\d+\s+)?([A-Z0-9]+)", ln)
-        if fn is not None and m and m.group(1) in fn:
-            fn[m.group(1)] += 1
-    return counts
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", ln)
+        if fn is not None and m:
+            fn.append((int(m.group(1), 16), m.group(2), ln))
+    return listing
+
+
+def sass_ops(path, ops=("FMUL", "FADD", "FFMA")) -> dict:
+    """Per kernel in a built library, how many of ``ops`` its SASS holds."""
+    return {fn: {op: sum(1 for _, o, _ in ins if o == op) for op in ops} for fn, ins in sass_listing(path).items()}
+
+
+def step_loop_instructions(ins) -> int | None:
+    """SASS instructions of one trip of a kernel's main loop: the widest
+    backward branch's span, less the spans of the loops nested in it (K1's
+    AGC bootstrap, the Goertzel tone loops, the input tile's copy loop).
+    It still holds both the AM and the NFM arm and the straight-line parts
+    of the rare branches, which a warp's step does not all run.  None when
+    the listing shows no backward branch."""
+    import re
+
+    loops = []
+    for addr, op, ln in ins:
+        m = re.search(r"0x([0-9a-f]+)\s*;", ln) if op == "BRA" else None
+        if m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    if not loops:
+        return None
+    lo, hi = max(loops, key=lambda b: b[1] - b[0])
+    inner = [(a, b) for a, b in loops if lo <= a and b <= hi and (a, b) != (lo, hi)]
+    return sum(1 for addr, _, _ in ins if lo <= addr <= hi and not any(a <= addr <= b for a, b in inner))
+
+
+def ptxas_summary(log: str) -> dict:
+    """Per kernel, the registers / shared memory line and the spill line
+    that ``nvcc -Xptxas -v`` printed."""
+    import re
+
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([A-Za-z0-9_]+)", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn and ("registers" in ln or "spill" in ln):
+            out.setdefault(fn, []).append(ln.split(":", 1)[-1].strip())
+    return out
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -123,10 +171,23 @@ def state_diffs(a_state, b_state) -> dict:
     return out
 
 
-def check_state(diffs: dict, label: str) -> None:
-    bad = {k: v for k, v in diffs.items() if (v != 0 if isinstance(v, int) else v > ATOL)}
-    if bad:
-        raise AssertionError(f"{label}: state outside the bars: {bad}")
+def phase_k1_build(path) -> int | None:
+    """K1's instantiations as built: dynamic shared memory a block, SASS
+    memory instructions (LDS/STS shared, LDG/STG device, LD/ST generic,
+    LDGSTS the cp.async copies) and the instructions of one step's loop body.
+    Returns that count for the default block width (None if not counted)."""
+    from rtlsdr_airband_tpu_torch.ops import demod_cuda
+
+    lib = demod_cuda.cuda_library()
+    for w in demod_cuda.BLOCK_WIDTHS:
+        log(f"K1 block width {w}: {demod_cuda.smem_bytes(lib, w)} bytes of dynamic shared memory a block")
+    counts = {}
+    for fn, ins in sass_listing(path).items():
+        ops = {op: sum(1 for _, o, _ in ins if o == op) for op in ("LDS", "STS", "LDG", "STG", "LD", "ST", "LDGSTS")}
+        counts[fn] = step_loop_instructions(ins)
+        log(f"sass {fn}: {len(ins)} instructions, memory {ops}, step loop body {counts[fn]}")
+    default = [n for fn, n in counts.items() if "demod_kernel" in fn and f"ILi{demod_cuda.BLOCK_WIDTH}E" in fn]
+    return default[0] if default else None
 
 
 def phase_parity(device) -> dict:
@@ -155,13 +216,13 @@ def phase_parity(device) -> dict:
         err["flags_mismatch"] += int((kout[3] != pout[3]).sum().item())
         diffs = state_diffs(kout[0], pout[0])
         worst = max((v for v in diffs.values() if isinstance(v, float)), default=0.0)
-        err["bitwise"] &= all(torch.equal(a, b) for a, b in zip(kout[1:], pout[1:])) and not any(diffs.values())
+        err["bitwise"] &= same_bits(kout, pout)
         log(f"parity block {k}: audio {err['audio']:.3e} iq {err['iq']:.3e} flag mismatches {err['flags_mismatch']} "
             f"int/bool leaves differing {sum(1 for v in diffs.values() if isinstance(v, int) and v)} "
             f"worst float state {worst:.3e}; bit for bit so far: {err['bitwise']} ({time.perf_counter() - t0:.1f} s)")
-        if err["audio"] >= ATOL or err["iq"] >= ATOL or err["flags_mismatch"]:
-            raise AssertionError(f"parity block {k}: outputs outside the bars: {err}")
-        check_state(diffs, f"parity block {k}")
+        if not err["bitwise"]:
+            raise AssertionError(f"parity block {k}: K1 (block width {demod_cuda.BLOCK_WIDTH}) is not bit for bit the plain "
+                                 f"version: {err}; state differences {({n: v for n, v in diffs.items() if v})}")
         ks, ps = kout[0], pout[0]
     opens = ps.open_count[hot].tolist()
     ct = [h for h in hot if bool(params.ctcss_enabled[h])]
@@ -220,10 +281,21 @@ def demod_bound(params, state, mags) -> tuple[float, str, str]:
     return max(bytes_ms, ops_ms), by, how
 
 
-def kernel_ms(params, state, mags, iqs, reps: int, with_ctcss: bool = True) -> float:
-    """K1 alone: CUDA events right around its launch, so the wrapper's
-    checks, allocations and fade assembly fall outside.  Min over ``reps``
-    after one warm-up.  Not counted in LAUNCHES."""
+def k1_designs() -> dict:
+    """K1's launchers by name: the shared-memory design at each built block
+    width, and the first, device-memory design."""
+    from rtlsdr_airband_tpu_torch.ops import demod_cuda
+
+    designs = {f"smem{w}": (lambda lib, args, w=w: demod_cuda.launch_kernel(lib, args, w)) for w in demod_cuda.BLOCK_WIDTHS}
+    designs["global"] = demod_cuda.launch_global_kernel
+    return designs
+
+
+def kernel_ms(launcher, params, state, mags, iqs, reps: int, with_ctcss: bool = True):
+    """K1 alone: CUDA events right around ``launcher(lib, args)``, so the
+    wrapper's checks, allocations and fade assembly fall outside.  Min over
+    ``reps`` after one warm-up, and the last run's outputs.  Not counted in
+    LAUNCHES."""
     import torch
 
     from rtlsdr_airband_tpu_torch.ops import demod_cuda
@@ -234,17 +306,30 @@ def kernel_ms(params, state, mags, iqs, reps: int, with_ctcss: bool = True) -> f
     def launch(args):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        demod_cuda.launch_kernel(lib, args)
+        launcher(lib, args)
         end.record()
         times.append((start, end))
 
     for _ in range(reps + 1):
-        demod_cuda.run_with(launch, lib, params, state, mags, iqs, fm_quadri=False, with_ctcss=with_ctcss, with_iq=False)
+        out = demod_cuda.run_with(launch, lib, params, state, mags, iqs, fm_quadri=False, with_ctcss=with_ctcss, with_iq=False)
     torch.cuda.synchronize()
-    return min(s.elapsed_time(e) for s, e in times[1:])
+    return min(s.elapsed_time(e) for s, e in times[1:]), out
 
 
-def phase_main_path(device, card: str) -> dict:
+def same_bits(a, b) -> bool:
+    """Two demod returns equal bit for bit in every output and state leaf."""
+    import torch
+
+    from rtlsdr_airband_tpu_torch.interop import state_to_numpy
+
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x  # noqa: E731
+    if not all(torch.equal(bits(x), bits(y)) for x, y in zip(a[1:], b[1:])):
+        return False
+    sa, sb = state_to_numpy(a[0]), state_to_numpy(b[0])
+    return all(sa[k].tobytes() == sb[k].tobytes() for k in sa)
+
+
+def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int | None) -> dict:
     """The port's main path at full width, then its timings."""
     import torch
 
@@ -292,34 +377,60 @@ def phase_main_path(device, card: str) -> dict:
     taps = (block.taps_re, block.taps_im)
     inputs = [channelize_matmul(xb, block.bins, block.window, hop=hop, fft_size=kw["fft_size"], n_frames=W, taps=taps) for xb in xs]
     gemm_ms = time_ms(lambda: channelize_matmul(xs[0], block.bins, block.window, hop=hop, fft_size=kw["fft_size"], n_frames=W, taps=taps), reps=10)
-    k1_per_block = [kernel_ms(params, st, m, q, reps=3) for st, (m, q) in zip(states_in, inputs)]
-    k1_mean = sum(k1_per_block) / K_BLOCKS
-    # the same without the Goertzel banks: how much of K1 the CTCSS channels cost
-    k1_no_ctcss = [kernel_ms(params, st, m, q, reps=3, with_ctcss=False) for st, (m, q) in zip(states_in, inputs)]
+    # K1 alone in each design on each block, with and without the Goertzel
+    # banks (how much of K1 the CTCSS channels cost); every design's outputs
+    # on a block equal bit for bit
+    per = {(d, ct): [] for d in k1_designs() for ct in (True, False)}
+    for k, (st, (m, q)) in enumerate(zip(states_in, inputs)):
+        for ct in (True, False):
+            outs_k = {}
+            for d, launcher in k1_designs().items():
+                ms, outs_k[d] = kernel_ms(launcher, params, st, m, q, reps=3, with_ctcss=ct)
+                per[d, ct].append(ms)
+            if not all(same_bits(outs_k["global"], o) for o in outs_k.values()):
+                raise AssertionError(f"block {k} (with_ctcss={ct}): K1's designs differ: " + ", ".join(
+                    f"{d} {'=' if same_bits(outs_k['global'], o) else '!='} global" for d, o in outs_k.items()))
+    mean = {key: sum(v) / K_BLOCKS for key, v in per.items()}
+    default = f"smem{demod_cuda.BLOCK_WIDTH}"
     last_mags, last_iqs = inputs[-1]
     plain_ms = time_ms(lambda: demod_block(params, states_in[-1], last_mags, last_iqs), reps=1, warmup=0)
     bound_ms, bound_by, how = demod_bound(params, states_in[-1], last_mags)
+    issue_ms = W * step_instructions / (clock_mhz * 1e3) if step_instructions else None
     t = dict(
         block_ms=block_ms,
         channel_msps=C_FLAGSHIP * W * hop / block_s / 1e6,
         realtime_factor=(W / 16000) / block_s,
-        k1_ms=k1_mean,
-        k1_no_ctcss_ms=sum(k1_no_ctcss) / K_BLOCKS,
+        k1_ms=mean[default, True],
+        k1_no_ctcss_ms=mean[default, False],
+        k1_global_ms=mean["global", True],
+        k1_global_no_ctcss_ms=mean["global", False],
         gemm_ms=gemm_ms,
         plain_ms=plain_ms,
         bound_ms=bound_ms,
         bound_by=bound_by,
+        issue_bound_ms=issue_ms,
         launches=launches,
     )
-    log(f"K1 alone per main-path block (ms): {' '.join(f'{v:.3f}' for v in k1_per_block)}")
-    log(f"K1 alone without the CTCSS banks (with_ctcss=False), per block (ms): {' '.join(f'{v:.3f}' for v in k1_no_ctcss)}")
+    for (d, ct), v in per.items():
+        log(f"K1 {d:<8s} {'with' if ct else 'without'} the CTCSS banks, per main-path block (ms): "
+            f"{' '.join(f'{x:.4f}' for x in v)}; mean {mean[d, ct]:.4f}")
+    widths = {w: mean[f"smem{w}", True] for w in demod_cuda.BLOCK_WIDTHS}
+    faster = min(widths, key=widths.get)
+    log(f"K1 block width: default {demod_cuda.BLOCK_WIDTH}, faster on this card {faster} "
+        f"({', '.join(f'{w}: {v:.4f} ms' for w, v in widths.items())}); designs equal bit for bit on all {K_BLOCKS} blocks")
+    log(f"K1 speedup over the device-memory design [{card}]: {mean['global', True] / mean[default, True]:.2f}x with the banks, "
+        f"{mean['global', False] / mean[default, False]:.2f}x without")
     log(f"K1 bound ({bound_by}): {how}")
+    if issue_ms is not None:
+        log(f"K1 issue bound: W x {step_instructions} SASS instructions of one step's loop body / {clock_mhz:.0f} MHz "
+            f"= {issue_ms:.4f} ms ({1e3 * issue_ms / W:.4f} us a step)")
     gemm_flop = 4 * 2 * W * kw["fft_size"] * C_FLAGSHIP
     log(f"channelizer GEMMs' bound (operations): 4 x 2*W*N*C = {gemm_flop} flop / 67 TFLOP/s = {gemm_flop / FP32_FLOPS * 1e3:.4f} ms")
     profile_chain(run_chain, card)
     log(
         f"timing [{card}]: block_ms {block_ms:.3f} channel_msps {t['channel_msps']:.1f} realtime_factor {t['realtime_factor']:.2f} "
-        f"k1_ms {k1_mean:.3f} gemm_ms {gemm_ms:.3f} plain_demod_ms {plain_ms:.1f} k1_bound_ms {bound_ms:.4f}"
+        f"k1_ms {t['k1_ms']:.4f} (width {demod_cuda.BLOCK_WIDTH}; device-memory design {t['k1_global_ms']:.4f}) gemm_ms {gemm_ms:.3f} "
+        f"plain_demod_ms {plain_ms:.1f} k1_bound_ms {bound_ms:.4f}"
     )
     return t
 
@@ -375,7 +486,7 @@ def probe_bound(x, kind: str, clock_mhz: float) -> tuple[float, str, float, str]
     return max(bytes_ms, ops_ms), by, latency_ms, how
 
 
-def phase_probe(device, card: str, t: dict) -> dict:
+def phase_probe(device, card: str, t: dict, clock_mhz: float) -> dict:
     """K2 through the probe's entry point, then against its plain version."""
     import contextlib
     import io
@@ -403,7 +514,6 @@ def phase_probe(device, card: str, t: dict) -> dict:
         + "; ".join(f"{k} {v['ms_per_block']:.4f} ms/block {v['us_per_step']:.4f} us/step (SUBL {v['subl']})" for k, v in kinds.items()))
     log(f"probe: chain2_vs_chain1 {res['chain2_vs_chain1']:.4f} wide_vs_chain1 {res['wide_vs_chain1']:.4f}; {res['verdict']}")
 
-    clock_mhz = float(smi("clocks.max.sm").split()[0])
     err, plain_ms, bounds = 0.0, {}, {}
     for kind, xs in probe.probe_inputs(device).items():
         x = xs[0]
@@ -430,7 +540,8 @@ def phase_probe(device, card: str, t: dict) -> dict:
     log(f"step [{card}]: K2 chain1 {kinds['chain1']['us_per_step']:.4f} us (latency bound "
         f"{bounds['chain1'][2] / res['W'] * 1e3:.4f} us at {FP32_DEP_LATENCY_CYCLES} cycles, {clock_mhz:.0f} MHz); "
         f"K1 {t['k1_ms'] / W1 * 1e3:.4f} us with the CTCSS banks, {t['k1_no_ctcss_ms'] / W1 * 1e3:.4f} us without "
-        f"({t['k1_no_ctcss_ms'] / W1 * 1e3 / kinds['chain1']['us_per_step']:.2f}x the 40-link chain)")
+        f"({t['k1_no_ctcss_ms'] / W1 * 1e3 / kinds['chain1']['us_per_step']:.2f}x the 40-link chain); the device-memory design "
+        f"{t['k1_global_ms'] / W1 * 1e3:.4f} and {t['k1_global_no_ctcss_ms'] / W1 * 1e3:.4f} us")
     return dict(launches=launches, err=err, ms=c1_ms, plain_ms=plain_ms["chain1"], bound_ms=bounds["chain1"][0],
                 bound_by=bounds["chain1"][1], latency_bound_ms=bounds["chain1"][2])
 
@@ -459,8 +570,11 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_kernels()
     for src, b in built.items():
-        regs = [ln.strip() for ln in b.log.splitlines() if "registers" in ln or "spill" in ln]
-        log(f"build {src}: {b.seconds:.1f} s -> {b.path.name}; " + " | ".join(regs))
+        log(f"build {src}: {b.seconds:.1f} s -> {b.path.name}")
+        for fn, lines in ptxas_summary(b.log).items():
+            log(f"  ptxas {fn}: {' | '.join(lines)}")
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
+    step_instructions = phase_k1_build(built["demod.cu"].path)
     # K2's chains must survive the compiler: 2 * L dependent FMUL/FADD a
     # trip (times the W loop's unroll) and no FFMA under --fmad=false
     for fn, n in sass_ops(built["chain_probe.cu"].path).items():
@@ -469,8 +583,8 @@ def main() -> int:
 
     err = phase_parity(device)
     phase_snr(device)
-    t = phase_main_path(device, card)
-    p = phase_probe(device, card, t)
+    t = phase_main_path(device, card, clock_mhz, step_instructions)
+    p = phase_probe(device, card, t, clock_mhz)
 
     log(f"kernels: K1 demod (csrc/demod.cu) launches {t['launches']} parity ok "
         f"(audio {err['audio']:.3e}, iq {err['iq']:.3e}, flags exact, int/bool state exact, bit for bit: {err['bitwise']}); "
@@ -487,6 +601,8 @@ def main() -> int:
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
+        "latency_bound_ms": t["issue_bound_ms"],
+        "global_design_ms": t["k1_global_ms"],
         "library_ms": None,
     }, {
         "name": "chain_probe",

@@ -8,8 +8,8 @@ unchanged one is reused.  Several sources build in parallel: one compiler
 process each, all started together.
 
 ``load_host`` builds a ``.cpp`` file with ``g++`` the same way; the CPU tests
-use it to run the kernel's per-channel code (``csrc/demod_step.cuh``) on the
-host.
+use it to run the kernel's code (``csrc/demod_step.cuh`` in the layouts of
+``csrc/demod_tiles.cuh``) on the host.
 """
 
 from __future__ import annotations

@@ -10,8 +10,12 @@
 // g++ -ffp-contract=off) each one rounds as the plain version's does and
 // every output and every state leaf comes out equal, bit for bit.
 //
-// Layout: every per-channel array is [rows, C] with the channel fastest, so
-// the threads of a warp (consecutive channels) touch consecutive addresses.
+// Layout: every per-channel array of the arguments is [rows, C] with the
+// channel fastest, so the threads of a warp (consecutive channels) touch
+// consecutive addresses.  Where the step keeps its rings, Goertzel banks and
+// tone tables (a Column) and where it takes each sample from (a source) are
+// the caller's: demod_tiles.cuh holds the two designs, the kernel's shared-
+// memory tiles and the first design's device-memory rows.
 
 #pragma once
 
@@ -89,8 +93,6 @@ constexpr float M1PI = (float)(1.0 / 3.14159265358979323846);
   /* DemodState in and out */                                                          \
   DEMOD_STATE_FIELDS(DEMOD_STATE_IN, X)                                                \
   DEMOD_STATE_FIELDS(DEMOD_STATE_OUT, X)                                               \
-  /* scratch rings [SQ_BUF, C] and [AGC_EXTRA, C] */                                   \
-  X(float*, sq_ring) X(float*, dl_ring)                                                \
   /* outputs: audio before fade assembly [W, C]; flags [W, C] (bit 0 open,            \
      bit 1 AM fade); gated IQ [W, C, 2], only written when with_iq */                  \
   X(float*, audio_raw) X(uint8_t*, flags) X(float*, iq_out)
@@ -145,42 +147,63 @@ struct Bank {
   bool enough, has_tone;
 };
 
+// Where one channel's rings, Goertzel banks and tone tables live: pointers
+// at its row 0, consecutive rows `stride` elements apart.  Rows of the
+// rings hold the rotating ring (slot n % rows); the banks are [MAX_TONES].
+struct Column {
+  float *sq, *dl;                // squelch ring [SQ_BUF], wavein delay line [AGC_EXTRA]
+  float *fq1, *fq2, *sq1, *sq2;  // fast / slow Goertzel accumulators
+  const float *fcoeff, *scoeff;  // fast / slow tone coefficients
+  const uint8_t *fmask, *smask;  // fast / slow tone masks
+  size_t stride;
+};
+
 // One Goertzel-bank sample (ctcss.cpp:44-61,124-163).  q1/q2/coeff/mask
-// point at this channel's tone 0; tone t is t*C further on.
+// point at this channel's tone 0; tone t is t*S further on.  Rare code
+// (reset, decision) stays a loop: it runs once a window.
 DEMOD_HD void bank_step(float* __restrict__ q1, float* __restrict__ q2, const float* __restrict__ coeff,
-                        const uint8_t* __restrict__ mask, int C, int32_t window, float ntones, float sample,
+                        const uint8_t* __restrict__ mask, size_t S, int32_t window, float ntones, float sample,
                         bool advance, bool reset, Bank& b) {
   if (reset) {
+#ifdef __CUDA_ARCH__
+#pragma unroll 1
+#endif
     for (int t = 0; t < MAX_TONES; ++t) {
-      q1[t * C] = 0.0f;
-      q2[t * C] = 0.0f;
+      q1[t * S] = 0.0f;
+      q2[t * S] = 0.0f;
     }
     b.count = 0;
     b.enough = false;
     b.has_tone = false;
   }
   if (!advance) return;
+  // unrolled whole: the 52 tones are independent, so every load issues
+  // before the first one's result is needed (unrolled by 4, each trip of 4
+  // tones waited out a shared-memory latency; PERF.md, section 6)
 #ifdef __CUDA_ARCH__
-#pragma unroll 4
+#pragma unroll
 #endif
   for (int t = 0; t < MAX_TONES; ++t) {
-    const float a = q1[t * C], z = q2[t * C];
-    q2[t * C] = a;
-    q1[t * C] = coeff[t * C] * a - z + sample;
+    const float a = q1[t * S], z = q2[t * S];
+    q2[t * S] = a;
+    q1[t * S] = coeff[t * S] * a - z + sample;
   }
   b.count += 1;
   if (b.count < window) return;
   // window complete: max + average decision, then restart the window
   float maxp = -INFINITY, total = 0.0f, p0 = 0.0f;
+#ifdef __CUDA_ARCH__
+#pragma unroll 1
+#endif
   for (int t = 0; t < MAX_TONES; ++t) {
-    const float x = q1[t * C], y = q2[t * C];
-    const float power = x * x + y * y - x * y * coeff[t * C];
+    const float x = q1[t * S], y = q2[t * S];
+    const float power = x * x + y * y - x * y * coeff[t * S];
     if (t == 0) p0 = power;
-    const bool m = mask[t * C] != 0;
+    const bool m = mask[t * S] != 0;
     if (m && (power != power || power > maxp)) maxp = power;  // NaN propagates, as amax does
     total = total + (m ? power : 0.0f);
-    q1[t * C] = 0.0f;
-    q2[t * C] = 0.0f;
+    q1[t * S] = 0.0f;
+    q2[t * S] = 0.0f;
   }
   const float avg = total / ntones;
   const bool detected = (p0 == maxp) && (p0 > avg);
@@ -191,9 +214,15 @@ DEMOD_HD void bank_step(float* __restrict__ q1, float* __restrict__ q2, const fl
   b.count = 0;
 }
 
-DEMOD_HD void demod_channel(const DemodArgs& a, int c, const float* sin_lut, const float* cos_lut) {
-  const int W = a.W, C = a.C;
-  const size_t Cs = (size_t)C;
+// Channel c through the W samples of the block.  `col` says where its rings,
+// banks and tone tables live; `src.at(n, s, r, i)` gives sample n's
+// magnitude and IQ pair (row n of iq_tail below AGC_EXTRA, of iqs above).
+template <class Src>
+DEMOD_HD void demod_channel(const DemodArgs& a, int c, const float* sin_lut, const float* cos_lut, const Column& col,
+                            Src& src) {
+  const int W = a.W;
+  const size_t Cs = (size_t)a.C;
+  const size_t S = col.stride;
 
   // ---- loop-invariant params ----
   const bool is_nfm = a.p_is_nfm[c] != 0;
@@ -230,33 +259,31 @@ DEMOD_HD void demod_channel(const DemodArgs& a, int c, const float* sin_lut, con
   Bank fast{a.s_fast_count[c], a.s_fast_found[c], a.s_fast_not_found[c], a.s_fast_enough[c] != 0, a.s_fast_has_tone[c] != 0};
   Bank slow{a.s_slow_count[c], a.s_slow_found[c], a.s_slow_not_found[c], a.s_slow_enough[c] != 0, a.s_slow_has_tone[c] != 0};
 
-  // ---- rings and banks in device memory, [row, C] ----
-  float* sq = a.sq_ring + c;
-  float* dl = a.dl_ring + c;
-  for (int k = 0; k < SQ_BUF; ++k) sq[k * Cs] = a.s_sq_buffer[k * Cs + c];
-  for (int k = 0; k < AGC_EXTRA; ++k) dl[k * Cs] = a.s_wavein_delay[k * Cs + c];
-  float* fq1 = a.o_fast_q1 + c;
-  float* fq2 = a.o_fast_q2 + c;
-  float* sq1 = a.o_slow_q1 + c;
-  float* sq2 = a.o_slow_q2 + c;
+  // ---- rings and banks into their column, row 0 oldest ----
+  float* sq = col.sq;
+  float* dl = col.dl;
+  for (int k = 0; k < SQ_BUF; ++k) sq[k * S] = a.s_sq_buffer[k * Cs + c];
+  for (int k = 0; k < AGC_EXTRA; ++k) dl[k * S] = a.s_wavein_delay[k * Cs + c];
   for (int t = 0; t < MAX_TONES; ++t) {
-    fq1[t * Cs] = a.s_fast_q1[t * Cs + c];
-    fq2[t * Cs] = a.s_fast_q2[t * Cs + c];
-    sq1[t * Cs] = a.s_slow_q1[t * Cs + c];
-    sq2[t * Cs] = a.s_slow_q2[t * Cs + c];
+    col.fq1[t * S] = a.s_fast_q1[t * Cs + c];
+    col.fq2[t * S] = a.s_fast_q2[t * Cs + c];
+    col.sq1[t * S] = a.s_slow_q1[t * Cs + c];
+    col.sq2[t * S] = a.s_slow_q2[t * Cs + c];
   }
 
   // rotating ring positions: slot pos_sq holds the oldest entry (n % SQ_BUF)
   int pos_sq = 0, pos_dl = 0;
+#ifdef __CUDA_ARCH__
+#pragma unroll 1
+#endif
   for (int n = 0; n < W; ++n) {
     const int pos_sq1 = (pos_sq + 1 == SQ_BUF) ? 0 : pos_sq + 1;
     // loads that depend on no arithmetic of this step, issued together
-    const float s = a.mags[(size_t)n * Cs + c];
-    const float* iq = (n < AGC_EXTRA) ? a.iq_tail + 2 * ((size_t)n * Cs + c) : a.iqs + 2 * ((size_t)(n - AGC_EXTRA) * Cs + c);
-    const float in_r = iq[0], in_i = iq[1];
-    const float buf_old = sq[pos_sq * Cs];   // age-102 value (pre-append)
-    const float buf_tail = sq[pos_sq1 * Cs]; // age-101 value (oldest after the append)
-    const float env = dl[pos_dl * Cs];       // wavein[j - AGC_EXTRA]
+    float s, in_r, in_i;
+    src.at(n, s, in_r, in_i);
+    const float buf_old = sq[pos_sq * S];   // age-102 value (pre-append)
+    const float buf_tail = sq[pos_sq1 * S]; // age-101 value (oldest after the append)
+    const float env = dl[pos_dl * S];       // wavein[j - AGC_EXTRA]
 
     // ======== Squelch::update_current_state (squelch.cpp:363-460) ========
     const bool is_A = nxt == OPENING, A1 = is_A && cur != OPENING, A2 = is_A && !A1;
@@ -308,7 +335,7 @@ DEMOD_HD void demod_channel(const DemodArgs& a, int c, const float* sin_lut, con
 
     const float pre_full1 = pre_full * MA_DECAY + s * MA_NEW;
     const float pre_capped1 = (pre_capped >= cap && s >= cap) ? cap : min_nan(cap, pre_capped * MA_DECAY + s * MA_NEW);
-    sq[pos_sq * Cs] = pre_capped1 * PRE_VS_POST;  // append (overwrites the oldest)
+    sq[pos_sq * S] = pre_capped1 * PRE_VS_POST;  // append (overwrites the oldest)
 
     const float lvl1 = levels(useman, manual, nratio, fratio, nf1, roc1);
     const bool has_pre = pre_capped1 >= lvl1;
@@ -384,8 +411,11 @@ DEMOD_HD void demod_channel(const DemodArgs& a, int c, const float* sin_lut, con
       if (first_open) {
         // squelch-open AGC bootstrap: sequential fold, oldest first
         int p = pos_dl;
+#ifdef __CUDA_ARCH__
+#pragma unroll 1
+#endif
         for (int i = 0; i < AGC_EXTRA; ++i) {
-          const float v = dl[p * Cs];
+          const float v = dl[p * S];
           if (v >= lvl1) agc1 = 0.9f * agc1 + 0.1f * v;
           p = (p + 1 == AGC_EXTRA) ? 0 : p + 1;
         }
@@ -419,15 +449,15 @@ DEMOD_HD void demod_channel(const DemodArgs& a, int c, const float* sin_lut, con
       waveout = w_n;
       agc2 = spa ? agc_nfm : agc;
     }
-    dl[pos_dl * Cs] = wavein_mod;  // append after the env / bootstrap reads
+    dl[pos_dl * S] = wavein_mod;  // append after the env / bootstrap reads
 
     // ======== CTCSS (squelch.cpp:278-292, ctcss.cpp) ========
     bool gate = true;
     if (a.with_ctcss) {
       const bool adv_ct = spa && cur1 != CLOSED && ctcss_en;
       if (adv_ct || ctcss_reset) {
-        bank_step(sq1, sq2, a.p_slow_coeff + c, a.p_slow_mask + c, C, swin, snt, waveout, adv_ct, ctcss_reset, slow);
-        bank_step(fq1, fq2, a.p_fast_coeff + c, a.p_fast_mask + c, C, fwin, fnt, waveout, adv_ct && !slow.enough,
+        bank_step(col.sq1, col.sq2, col.scoeff, col.smask, S, swin, snt, waveout, adv_ct, ctcss_reset, slow);
+        bank_step(col.fq1, col.fq2, col.fcoeff, col.fmask, S, fwin, fnt, waveout, adv_ct && !slow.enough,
                   ctcss_reset, fast);
       }
       if (ctcss_en) gate = slow.enough ? slow.has_tone : fast.has_tone;
@@ -480,13 +510,19 @@ DEMOD_HD void demod_channel(const DemodArgs& a, int c, const float* sin_lut, con
   a.o_fast_enough[c] = fast.enough ? 1 : 0; a.o_fast_has_tone[c] = fast.has_tone ? 1 : 0;
   a.o_slow_count[c] = slow.count; a.o_slow_found[c] = slow.found; a.o_slow_not_found[c] = slow.not_found;
   a.o_slow_enough[c] = slow.enough ? 1 : 0; a.o_slow_has_tone[c] = slow.has_tone ? 1 : 0;
+  for (int t = 0; t < MAX_TONES; ++t) {
+    a.o_fast_q1[t * Cs + c] = col.fq1[t * S];
+    a.o_fast_q2[t * Cs + c] = col.fq2[t * S];
+    a.o_slow_q1[t * Cs + c] = col.sq1[t * S];
+    a.o_slow_q2[t * Cs + c] = col.sq2[t * S];
+  }
   // un-rotate the rings into row-0-oldest order
   for (int k = 0; k < SQ_BUF; ++k) {
-    a.o_sq_buffer[k * Cs + c] = sq[pos_sq * Cs];
+    a.o_sq_buffer[k * Cs + c] = sq[pos_sq * S];
     pos_sq = (pos_sq + 1 == SQ_BUF) ? 0 : pos_sq + 1;
   }
   for (int k = 0; k < AGC_EXTRA; ++k) {
-    a.o_wavein_delay[k * Cs + c] = dl[pos_dl * Cs];
+    a.o_wavein_delay[k * Cs + c] = dl[pos_dl * S];
     pos_dl = (pos_dl + 1 == AGC_EXTRA) ? 0 : pos_dl + 1;
   }
 }

@@ -5,6 +5,13 @@ same arguments and returns, minus the TPU schedule knobs.  For CUDA tensors
 ``demod_block_cuda`` launches the kernel or raises; for CPU tensors it runs
 the plain PyTorch version, ``ops.demod.demod_block``.
 
+The kernel keeps a block's rings, Goertzel banks and input tiles in shared
+memory; it is built at the block widths ``BLOCK_WIDTHS`` and launched at
+``BLOCK_WIDTH`` unless the caller names another built width.  The first
+design, with rings and banks in device memory, stays launchable through
+``launch_global_kernel`` only, as the yardstick ``chip_smoke.py`` times the
+kernel against.
+
 The kernel reads the state from the input tensors and writes a fresh state,
 so the caller's state is never modified.  ``LAUNCHES`` counts kernel
 launches, so a run can show that its main path went through the kernel.
@@ -13,6 +20,7 @@ launches, so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,6 +30,9 @@ from .demod import SQ_BUF, ChannelParams, CtcssState, DemodState, apply_fade_and
 from .goertzel import MAX_TONES
 
 LAUNCHES = 0
+
+BLOCK_WIDTHS = (32, 64)  # channels a block, the widths csrc/demod.cu instantiates
+BLOCK_WIDTH = 64  # the default: the faster of the two on the card (PERF.md, section 6)
 
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
 _INT_ARGS = ("W", "C", "fm_quadri", "with_ctcss", "with_iq")
@@ -118,8 +129,9 @@ def run_with(launch, lib, params: ChannelParams, state: DemodState, mags, iqs, f
         _check(f"state.{name}", v, dtype, shape, dev)
         t[f"s_{name}"] = v
         out[name] = t[f"o_{name}"] = torch.empty(shape, dtype=dtype, device=dev)
-    t["sq_ring"] = torch.empty((SQ_BUF, C), dtype=_F32, device=dev)
-    t["dl_ring"] = torch.empty((A, C), dtype=_F32, device=dev)
+    for name in ("iqs", "iq_tail"):  # the kernel stages each IQ pair with one 8-byte copy
+        if t[name].data_ptr() % 8:
+            raise ValueError(f"{name}: not 8-byte aligned")
     t["audio_raw"] = audio_raw = torch.empty((W, C), dtype=_F32, device=dev)
     t["flags"] = flags = torch.empty((W, C), dtype=torch.uint8, device=dev)
     iq_out = torch.empty((W, C, 2), dtype=_F32, device=dev) if with_iq else torch.zeros((W, C, 2), dtype=_F32, device=dev)
@@ -144,6 +156,11 @@ def run_with(launch, lib, params: ChannelParams, state: DemodState, mags, iqs, f
     return new_state, audio, iq_out, open_now
 
 
+def _check_width(block_width: int) -> None:
+    if block_width not in BLOCK_WIDTHS:
+        raise ValueError(f"block width {block_width}: the kernel is built for {BLOCK_WIDTHS} channels a block")
+
+
 def demod_block_cuda(
     params: ChannelParams,
     state: DemodState,
@@ -153,14 +170,17 @@ def demod_block_cuda(
     fm_quadri: bool = False,
     with_ctcss: bool = True,
     with_iq: bool = True,
+    block_width: int = BLOCK_WIDTH,
 ):
     """Drop-in replacement for :func:`ops.demod.demod_block`.
 
     Returns (new_state, audio [W, C], iq_out [W, C, 2], open_flags [W, C]).
     with_iq=False skips the per-sample IQ-tap stores (use when no channel has
-    IQ outputs); iq_out is then zeros.  CUDA tensors launch the kernel; CPU
-    tensors take the plain version.
+    IQ outputs); iq_out is then zeros.  CUDA tensors launch the kernel with
+    ``block_width`` channels a block (one of ``BLOCK_WIDTHS``); CPU tensors
+    take the plain version.
     """
+    _check_width(block_width)
     if mags.device.type == "cpu":
         st, audio, iq_out, open_now = demod_block(params, state, mags, iqs, fm_quadri=fm_quadri, with_ctcss=with_ctcss)
         return st, audio, (iq_out if with_iq else torch.zeros_like(iq_out)), open_now
@@ -170,34 +190,86 @@ def demod_block_cuda(
 
     def launch(args):
         global LAUNCHES
-        launch_kernel(lib, args)
+        launch_kernel(lib, args, block_width)
         LAUNCHES += 1
 
     with torch.cuda.device(mags.device):
         return run_with(launch, lib, params, state, mags, iqs, fm_quadri, with_ctcss, with_iq)
 
 
-def cuda_library() -> ctypes.CDLL:
-    """The nvcc-built ``csrc/demod.cu``, built at first use."""
-    lib = _build.load_kernel("demod.cu")
-    lib.demod_launch.restype = ctypes.c_int
-    lib.demod_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+def _bind_common(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.demod_smem_bytes.restype = ctypes.c_size_t
+    lib.demod_smem_bytes.argtypes = [ctypes.c_int]
+    lib.demod_global_scratch_rows.restype = ctypes.c_int
+    lib.demod_global_scratch_rows.argtypes = []
     return lib
 
 
-def launch_kernel(lib: ctypes.CDLL, args) -> None:
+@functools.cache
+def cuda_library() -> ctypes.CDLL:
+    """The nvcc-built ``csrc/demod.cu``, built at first use and kept."""
+    lib = _bind_common(_build.load_kernel("demod.cu"))
+    lib.demod_launch.restype = ctypes.c_int
+    lib.demod_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.demod_launch_global.restype = ctypes.c_int
+    lib.demod_launch_global.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    return lib
+
+
+@functools.cache
+def host_library() -> ctypes.CDLL:
+    """The g++ build of ``csrc/demod_host.cpp``, a test aid."""
+    lib = _bind_common(_build.load_host("demod_host.cpp"))
+    lib.demod_host_tiled.restype = ctypes.c_int
+    lib.demod_host_tiled.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.demod_host_global.restype = ctypes.c_int
+    lib.demod_host_global.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    return lib
+
+
+def smem_bytes(lib: ctypes.CDLL, block_width: int) -> int:
+    """Dynamic shared memory of one block of the kernel at ``block_width``."""
+    _check_width(block_width)
+    return int(lib.demod_smem_bytes(block_width))
+
+
+def _global_scratch(lib: ctypes.CDLL, args, device) -> torch.Tensor:
+    return torch.empty((lib.demod_global_scratch_rows(), args.C), dtype=_F32, device=device)
+
+
+def launch_kernel(lib: ctypes.CDLL, args, block_width: int = BLOCK_WIDTH) -> None:
     """One launch of K1 on the current stream; raises if it was refused."""
-    rc = lib.demod_launch(ctypes.addressof(args), torch.cuda.current_stream().cuda_stream)
+    _check_width(block_width)
+    rc = lib.demod_launch(ctypes.addressof(args), block_width, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"demod kernel launch failed: CUDA error {rc}")
 
 
-def demod_block_host(params, state, mags, iqs, *, fm_quadri=False, with_ctcss=True, with_iq=True):
-    """Test aid: the kernel's per-channel code (``csrc/demod_step.cuh``)
-    built for the host with g++ and run on CPU tensors, channel after
-    channel.  Same returns as :func:`demod_block_cuda`.  Not used by the
-    port's own paths."""
-    lib = _build.load_host("demod_host.cpp")
-    lib.demod_host.restype = ctypes.c_int
-    lib.demod_host.argtypes = [ctypes.c_void_p]
-    return run_with(lambda args: lib.demod_host(ctypes.addressof(args)), lib, params, state, mags, iqs, fm_quadri, with_ctcss, with_iq)
+def launch_global_kernel(lib: ctypes.CDLL, args) -> None:
+    """One launch of the first, device-memory design of K1 on the current
+    stream (the yardstick; no path of the port calls it); raises if it was
+    refused.  Its scratch is freed in stream order after the launch."""
+    scratch = _global_scratch(lib, args, torch.device("cuda", torch.cuda.current_device()))
+    rc = lib.demod_launch_global(ctypes.addressof(args), scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"demod (device-memory design) launch failed: CUDA error {rc}")
+
+
+def demod_block_host(params, state, mags, iqs, *, fm_quadri=False, with_ctcss=True, with_iq=True, block_width=BLOCK_WIDTH):
+    """Test aid: the kernel's code (``csrc/demod_step.cuh``,
+    ``csrc/demod_tiles.cuh``) built for the host with g++ and run on CPU
+    tensors.  ``block_width`` 32 or 64 runs the shared-memory design as the
+    kernel does (channel groups of that width, [row][width] rings and banks,
+    input tiles); None runs the first, device-memory design.  Same returns
+    as :func:`demod_block_cuda`.  Not used by the port's own paths."""
+    lib = host_library()
+    if block_width is None:
+        def launch(args):
+            scratch = _global_scratch(lib, args, mags.device)
+            lib.demod_host_global(ctypes.addressof(args), scratch.data_ptr())
+    else:
+        _check_width(block_width)
+
+        def launch(args):
+            lib.demod_host_tiled(ctypes.addressof(args), block_width)
+    return run_with(launch, lib, params, state, mags, iqs, fm_quadri, with_ctcss, with_iq)

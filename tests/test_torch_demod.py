@@ -2,10 +2,12 @@
 
 The plain PyTorch ``demod_block``, the kernel launcher ``demod_block_cuda``
 on CPU tensors (which takes the plain version) and ``demod_block_host`` (the
-kernel's own per-channel code, csrc/demod_step.cuh, built for the host with
-g++) are held against the JAX package's XLA scan ``demod_block`` and its
-Pallas kernel in interpret mode, on the same inputs fed to both frameworks
-through ``interop``.  Bars as in tests/test_demod_pallas.py: audio and IQ
+kernel's own code, csrc/demod_step.cuh and csrc/demod_tiles.cuh, built for
+the host with g++ and run in the kernel's shared-memory layout at its
+default block width) are held against the JAX package's XLA scan
+``demod_block`` and its Pallas kernel in interpret mode, on the same inputs
+fed to both frameworks through ``interop``.  tests/test_torch_demod_tiled.py
+holds that layout at both block widths and the ragged edges.  Bars as in tests/test_demod_pallas.py: audio and IQ
 within 1e-4 absolute, open flags and int/bool state exact, float state
 within 1e-4.
 """
@@ -25,7 +27,7 @@ from rtlsdr_airband_tpu_torch import interop
 from rtlsdr_airband_tpu_torch.ops import demod_cuda
 from rtlsdr_airband_tpu_torch.ops.demod import CLOSED, CLOSING, LSA, OPEN, OPENING, _set_state_valid, apply_fade_and_tail, demod_block
 
-from torch_port_common import ATOL, BANK_ACCUMULATORS, CENTER, FS, N, SPEC_KW, assert_close, jax_flat
+from torch_port_common import ATOL, BANK_ACCUMULATORS, CENTER, FS, N, SPEC_KW, assert_bitwise, assert_close, jax_flat
 
 A = 100
 
@@ -42,16 +44,6 @@ def _assert_block_close(jax_out, port_out, label):
     assert np.abs(np.asarray(ja) - ta.numpy()).max() < ATOL, label
     assert np.abs(np.asarray(jiq) - tiq.numpy()).max() < ATOL, label
     assert np.array_equal(np.asarray(jo), to.numpy()), label
-
-
-def _assert_bitwise(plain_out, host_out, label):
-    """The kernel's code repeats the plain version's float operations one
-    for one (no FMA contraction on either side): equal bit for bit."""
-    for x, y in zip(plain_out[1:], host_out[1:]):
-        assert torch.equal(x, y), label
-    pd, hd = interop.state_to_numpy(plain_out[0]), interop.state_to_numpy(host_out[0])
-    for k in pd:
-        assert np.array_equal(pd[k], hd[k]), f"{label}: state {k} differs from the plain version"
 
 
 def _setup(spec_kw, wave_rate, seed, active=False):
@@ -138,7 +130,9 @@ def test_matches_xla_scan_three_blocks(with_ctcss):
             _assert_state_close(js, out[0], f"{name} block {blk}")
             st[name] = out[0]
             outs[name] = out
-        _assert_bitwise(outs["plain"], outs["host"], f"block {blk}")
+        # the kernel's code repeats the plain version's float operations one for
+        # one (no FMA contraction on either side): equal bit for bit
+        assert_bitwise(outs["plain"], outs["host"], f"block {blk}")
     # the scene exercised what it claims to: squelches opened and closed again
     opened_then_closed = (np.asarray(js.open_count) > 0) & (np.asarray(js.cur) == CLOSED)
     assert opened_then_closed.sum() >= 2

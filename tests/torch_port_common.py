@@ -7,6 +7,11 @@ use it on a machine without JAX.
 import numpy as np
 import torch
 
+from rtlsdr_airband_tpu_torch import interop
+from rtlsdr_airband_tpu_torch.constants import AGC_EXTRA
+from rtlsdr_airband_tpu_torch.ops.demod import OPEN
+from rtlsdr_airband_tpu_torch.ops.params import init_demod_state
+
 FS, N, CENTER = 2_560_000, 512, 120_000_000
 
 SPEC_KW = [  # tests/test_demod_pallas.py::SPECS, as keyword sets for both packages
@@ -17,6 +22,13 @@ SPEC_KW = [  # tests/test_demod_pallas.py::SPECS, as keyword sets for both packa
     dict(frequency=120_800_000, modulation="am", squelch_threshold_dbfs=-40.0),
     dict(frequency=120_900_000, modulation="am", ampfactor=1.3),
 ]
+
+
+def spec_population(C: int) -> list[dict]:
+    """C channels cycling through SPEC_KW's six kinds from the CTCSS one
+    (so C = 3 has one too), 13 kHz apart inside the band (C <= 170)."""
+    return [dict(SPEC_KW[(i + 3) % len(SPEC_KW)], frequency=119_000_000 + 13_000 * i) for i in range(C)]
+
 
 # Bars as in tests/test_demod_pallas.py:94-97: audio, IQ and float state
 # within 1e-4 absolute; flags and int/bool state exact.
@@ -92,3 +104,41 @@ def assert_close(want: dict, got: dict, label: str) -> None:
         if k in BANK_ACCUMULATORS:
             d = d / np.maximum(1.0, np.abs(a.astype(np.float64)).max(axis=0))
         assert d.max() <= ATOL, f"{label}: {k} maxdiff {d.max():.3e}"
+
+
+def active_state(params, C: int, rng, device):
+    """Low noise floor, high signal averages and the CTCSS channels OPEN with
+    both Goertzel windows nearly full, so one short run opens and closes
+    squelches, and the banks decide, latch and reset (as in
+    tests/test_torch_demod.py)."""
+    st = init_demod_state(
+        C,
+        torch.from_numpy(np.abs(rng.normal(0, 1.0, (AGC_EXTRA, C))).astype(np.float32)),
+        torch.from_numpy(rng.normal(0, 0.5, (AGC_EXTRA, C, 2)).astype(np.float32)),
+    )
+    d = interop.state_to_numpy(st)
+    ct = params.ctcss_enabled.cpu().numpy()
+    d["noise_floor"] = np.full(C, 0.3, np.float32)
+    d["pre_full"] = d["pre_capped"] = np.full(C, 1.2, np.float32)
+    d["cur"] = d["nxt"] = np.where(ct, OPEN, d["cur"]).astype(np.int32)
+    for bank, left in (("fast", 40), ("slow", 100)):
+        d[f"{bank}.count"] = np.where(ct, getattr(params, f"{bank}_window").cpu().numpy() - left, 0).astype(np.int32)
+    return interop.state_from_numpy(d, device=device)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def assert_bitwise(want_out, got_out, label: str) -> None:
+    """Two demod_block returns (state, audio, iq, flags) equal bit for bit:
+    every output and every state leaf, floats compared as their bits (so a
+    NaN must sit at the same place with the same payload)."""
+    for name, x, y in zip(("audio", "iq", "flags"), want_out[1:], got_out[1:]):
+        assert x.shape == y.shape and torch.equal(_bits(x.cpu()), _bits(y.cpu())), f"{label}: {name} differs"
+    want, got = interop.state_to_numpy(want_out[0]), interop.state_to_numpy(got_out[0])
+    assert want.keys() == got.keys(), label
+    for k in want:
+        a, b = want[k], got[k]
+        assert a.dtype == b.dtype and a.shape == b.shape, f"{label}: state {k} {a.dtype}{a.shape} vs {b.dtype}{b.shape}"
+        assert a.tobytes() == b.tobytes(), f"{label}: state {k} differs"
