@@ -31,7 +31,26 @@ of JAX and nothing of the JAX package.  Phases, each fatal on failure:
    the three kinds; then on one block of its inputs per kind the kernel
    against its plain version, bit for bit, the plain version timed; its
    bound; the probe's us/step beside K1's;
-7. the kernels line, the JSON kernels line, the card line and the result.
+7. streaming: the port's Pipeline on the flagship population
+   (flagship_specs(8192), wave_rate 16000, N = 512, u8 input from siggen:
+   six AM carriers on channels, gated on and off, over noise; 17 blocks
+   after priming):
+   (a) production settings (chunk_blocks 8, async_depth 1, 256 active slots,
+       i8bf audio, fade-tail suppression, meta per chunk): K1 launches
+       against blocks processed with the counter at 0, keys and finite
+       audio of every block, active channels and overflows, D2H bytes a
+       block; wall time a block of feed + flush after warm() and its
+       realtime factor; the host's split of that wall (enqueue, waiting for
+       copies, rebuilding blocks, the rest); device time a block
+       (torch.profiler) and the idle share it implies;
+   (b) determinism: dense f32, chunk_blocks 8 / async_depth 1 against
+       chunk_blocks 1 / async_depth 0, every yielded key equal bit for bit;
+   (c) FFT and AFC: channelizer 'fft' with AFC on one channel in four, 4
+       blocks: channelize_fft against float64 (>= 80 dB), each block's
+       spectrum_power against the float64 spectrum of its decoded last
+       frame, channelize_fft timed beside channelize_matmul on one block,
+       the chain's packing timed on one block, with their bounds;
+8. the kernels line, the JSON kernels line, the card line and the result.
 """
 
 from __future__ import annotations
@@ -58,6 +77,8 @@ FP32_DEP_LATENCY_CYCLES = 4
 # lowpass ~14, magnitude 4, post-filter MAs ~8, AM or NFM ~20, notch 9,
 # ampfactor and clamp 3)
 DEMOD_STEP_FLOPS = 95
+STREAM_BLOCKS = 17  # after priming: two chunks of 8 and one block for flush()
+STREAM_SLOTS = 256
 
 
 def log(msg: str) -> None:
@@ -546,6 +567,258 @@ def phase_probe(device, card: str, t: dict, clock_mhz: float) -> dict:
                 bound_by=bounds["chain1"][1], latency_bound_ms=bounds["chain1"][2])
 
 
+def stream_bytes(specs, n_blocks: int, seed: int, *, sample_rate=2_560_000, wave_rate=16000, fft_size=512) -> bytes:
+    """The streaming phase's input, a u8 stream as an RTL-SDR hands it over:
+    priming plus ``n_blocks`` blocks; six AM carriers, each on one channel's
+    frequency with its own tone, gated on and off at their own times (so
+    squelch opens and closes), over noise; all from ``seed``."""
+    from rtlsdr_airband_tpu_torch.constants import AGC_EXTRA
+    from rtlsdr_airband_tpu_torch.models.flagship import CENTER_FREQ
+    from rtlsdr_airband_tpu_torch.utils.siggen import am_carrier_iq, complex_noise
+
+    hop, W = int(round(sample_rate / wave_rate)), wave_rate // 8
+    n = AGC_EXTRA * hop + (n_blocks * W - 1) * hop + fft_size
+    rng = np.random.default_rng(seed)
+    z = complex_noise(n, 0.02, seed)
+    t = np.arange(int(n * wave_rate / sample_rate) + 2) / wave_rate
+    for j, ch in enumerate(np.linspace(7, len(specs) - 9, 6).astype(int)):
+        gate = np.zeros(n, np.float32)
+        gate[int(rng.uniform(0.02, 0.3) * n) : int(rng.uniform(0.5, 0.75) * n)] = 1.0
+        if j % 2 == 0:
+            gate[int(0.88 * n) :] = 1.0
+        tone = 0.7 * np.sin(2 * np.pi * (300.0 + 150.0 * j) * t)
+        z += gate * am_carrier_iq(sample_rate, specs[ch].frequency - CENTER_FREQ, n, audio=tone, carrier_ampl=0.1, audio_rate=wave_rate)
+    u8 = np.empty(2 * n, np.uint8)
+    u8[0::2] = np.clip(np.round(z.real * 127.5 + 127.5), 0, 255)
+    u8[1::2] = np.clip(np.round(z.imag * 127.5 + 127.5), 0, 255)
+    return u8.tobytes()
+
+
+def stream(p, raw: bytes, on_block=None) -> tuple[int, float]:
+    """Feed ``raw`` one block of bytes a call, then flush; (blocks yielded,
+    wall seconds of feed + flush, the device synchronised at the end)."""
+    import torch
+
+    step = 2 * p.W * p.hop
+    blocks = []
+    t0 = time.perf_counter()
+    for gen in [p.feed(raw[i : i + step]) for i in range(0, len(raw), step)] + [p.flush()]:
+        for o in gen:
+            if on_block is not None:
+                on_block(o)
+            blocks.append(None)
+    torch.cuda.synchronize()
+    return len(blocks), time.perf_counter() - t0
+
+
+def host_split(p, raw: bytes) -> tuple[dict, int, float]:
+    """Where the host's wall time of one streaming run goes: enqueueing the
+    chunks (``_dispatch``: H2D staging and the chain's launches), waiting
+    for a chunk's copy to land, rebuilding the yielded blocks
+    (``_to_host`` less that wait), and the rest (ingest, priming, the
+    generators).  Host seconds, by wrapping the pipeline's own methods."""
+    import torch
+
+    spent = {"dispatch": 0.0, "wait": 0.0, "rebuild": 0.0}
+    dispatch, to_host, event_sync = p._dispatch, p._to_host, torch.cuda.Event.synchronize
+
+    def timed_dispatch(k):
+        t = time.perf_counter()
+        dispatch(k)
+        spent["dispatch"] += time.perf_counter() - t
+
+    def timed_sync(event):
+        t = time.perf_counter()
+        event_sync(event)
+        spent["wait"] += time.perf_counter() - t
+
+    def timed_to_host(item):
+        gen = to_host(item)
+        while True:
+            t, w = time.perf_counter(), spent["wait"]
+            o = next(gen, None)
+            spent["rebuild"] += time.perf_counter() - t - (spent["wait"] - w)
+            if o is None:
+                return
+            yield o
+
+    p._dispatch, p._to_host = timed_dispatch, timed_to_host
+    torch.cuda.Event.synchronize = timed_sync
+    n, wall = stream(p, raw)
+    torch.cuda.Event.synchronize = event_sync
+    spent["rest"] = wall - sum(spent.values())
+    return spent, n, wall
+
+
+def profile_stream(p, raw: bytes, card: str) -> tuple[float, float, float]:
+    """torch.profiler over one streaming run: (kernel device ms, copy device
+    ms, wall ms of the run with the profiler on); the top kernels logged."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        n, wall = stream(p, raw)
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    if not rows:
+        raise AssertionError("torch.profiler recorded no device time for the streaming run")
+    rows.sort(key=lambda r: -r[1])
+    copies = sum(ms for key, ms, _ in rows if key.startswith(("Memcpy", "Memset")))
+    kernels = sum(ms for key, ms, _ in rows) - copies
+    log(f"profile of the streaming run ({n} blocks) [{card}]: kernels {kernels:.3f} ms, copies {copies:.3f} ms "
+        f"(copy stream, overlapping), wall {wall * 1e3:.3f} ms with the profiler on; by kernel:")
+    for key, ms, cnt in rows[:12]:
+        log(f"  {ms:9.3f} ms  x{cnt:<5d} {key[:110]}")
+    return kernels, copies, wall * 1e3
+
+
+def phase_stream(device, card: str) -> dict:
+    """The port's Pipeline at full width (phase 7 of the module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from rtlsdr_airband_tpu_torch.constants import AGC_EXTRA
+    from rtlsdr_airband_tpu_torch.models.flagship import CENTER_FREQ, flagship_specs
+    from rtlsdr_airband_tpu_torch.ops import demod_cuda
+    from rtlsdr_airband_tpu_torch.ops.channelizer import block_input_len, channelize_fft, channelize_matmul, make_frames
+    from rtlsdr_airband_tpu_torch.ops.sampleconv import SampleFormat, decode_iq
+    from rtlsdr_airband_tpu_torch.runtime.pipeline import Pipeline, PipelineConfig, pack_block, pipeline_block
+
+    specs = flagship_specs(C_FLAGSHIP)
+    t0 = time.perf_counter()
+    raw = stream_bytes(specs, STREAM_BLOCKS, seed=11)
+    base = dict(sample_rate=2_560_000, center_freq=CENTER_FREQ, fft_size=512, wave_rate=16000,
+                sample_format="u8", fullscale=127.5)
+    prod = dict(base, chunk_blocks=8, async_depth=1, active_slots=STREAM_SLOTS, fetch_audio_fmt="i8bf",
+                suppress_fade_tails=True, fetch_meta_per_chunk=True)
+
+    def pipe(cfg, chan_specs=specs):
+        p = Pipeline(PipelineConfig(**cfg), chan_specs)
+        p.warm()
+        return p
+
+    p = pipe(prod)
+    W, hop, N, A = p.W, p.hop, p.N, AGC_EXTRA
+    log(f"stream: {len(raw)} u8 bytes, {STREAM_BLOCKS} blocks after priming, C={C_FLAGSHIP} W={W} hop={hop} N={N} "
+        f"(made in {time.perf_counter() - t0:.1f} s)")
+
+    # ---- (a) production settings: the counted run ----
+    want_keys = {"audio", "active", "gather_overflow", "sig_outside"} | {
+        "signal_level", "noise_level", "squelch_level", "open_count", "flappy_count", "ctcss_found", "ctcss_not_found"}
+    per_block = []
+
+    def check(o):
+        k = len(per_block)
+        if set(o) != want_keys:
+            raise AssertionError(f"stream block {k}: keys {sorted(o)}, expected {sorted(want_keys)}")
+        if o["audio"].shape != (W, C_FLAGSHIP) or not np.isfinite(o["audio"]).all():
+            raise AssertionError(f"stream block {k}: audio {o['audio'].shape} not finite or misshapen")
+        per_block.append((int(o["active"].sum()), int(o["gather_overflow"]), int(np.count_nonzero(np.abs(o["audio"]).max(axis=0)))))
+
+    demod_cuda.LAUNCHES = 0
+    n, _ = stream(p, raw, check)
+    launches = demod_cuda.LAUNCHES
+    if not (launches == p.blocks_processed == n == STREAM_BLOCKS):
+        raise AssertionError(f"stream: K1 launches {launches}, blocks processed {p.blocks_processed}, yielded {n}, "
+                             f"expected {STREAM_BLOCKS}")
+    if max(a for a, _, _ in per_block) == 0:
+        raise AssertionError("stream: no channel opened")
+    d2h = p.fetched_bytes / p.blocks_processed
+    log(f"stream (a) [{card}]: {n} blocks, K1 launches {launches} = blocks processed; active channels a block "
+        f"{[a for a, _, _ in per_block]}; channels with audio {[c for _, _, c in per_block]}; overflows "
+        f"{[o for _, o, _ in per_block]} (total {p.gather_overflow_count}); D2H {d2h:.0f} B a block")
+    walls = []
+    for _ in range(2):
+        q = pipe(prod)
+        n_t, wall = stream(q, raw)
+        walls.append(wall / n_t * 1e3)
+    wall_ms = min(walls)
+    split, n_s, wall_s = host_split(pipe(prod), raw)
+    log(f"stream (a) host [{card}]: per block " + ", ".join(f"{k} {v / n_s * 1e3:.3f} ms" for k, v in split.items())
+        + f" of {wall_s / n_s * 1e3:.3f} ms wall")
+    kernels_ms, copies_ms, prof_wall_ms = profile_stream(pipe(prod), raw, card)
+    device_ms = kernels_ms / STREAM_BLOCKS
+    log(f"stream (a) timing [{card}]: wall a block of feed + flush {' '.join(f'{w:.3f}' for w in walls)} ms "
+        f"(min {wall_ms:.3f}), realtime factor {(W / 16000) / (wall_ms / 1e3):.2f}; device time a block "
+        f"{device_ms:.3f} ms of kernels (+ {copies_ms / STREAM_BLOCKS:.3f} ms of copies on the copy stream), "
+        f"idle share {100 * (1 - device_ms / wall_ms):.1f} % (1 - device / wall)")
+
+    # ---- (b) determinism: chunked + async against single-block dispatch ----
+    ref = []
+    stream(pipe(dict(base, chunk_blocks=1, async_depth=0)), raw, lambda o: ref.append({k: np.array(v) for k, v in o.items()}))
+    same = []
+
+    def compare(o):
+        r = ref[len(same)]
+        bad = [k for k in r if k not in o or r[k].dtype != np.asarray(o[k]).dtype or r[k].tobytes() != np.asarray(o[k]).tobytes()]
+        same.append(not bad and r.keys() == o.keys())
+        if bad:
+            raise AssertionError(f"determinism: block {len(same) - 1} differs in {bad} (chunk_blocks 8 against 1)")
+
+    n_b, _ = stream(pipe(dict(base, chunk_blocks=8, async_depth=1)), raw, compare)
+    if n_b != len(ref) or not all(same):
+        raise AssertionError(f"determinism: {n_b} against {len(ref)} blocks")
+    log(f"stream (b) [{card}]: dense f32, chunk_blocks 8 / async_depth 1 equals chunk_blocks 1 / async_depth 0 bit for bit "
+        f"in every key ({sorted(ref[0])}) of all {n_b} blocks")
+
+    # ---- (c) the FFT channelizer and the AFC spectrum ----
+    afc_specs = [dataclasses.replace(s, afc=1) if i % 4 == 0 else s for i, s in enumerate(specs)]
+    p = pipe(dict(prod, channelizer="fft", chunk_blocks=4), afc_specs)
+    L = block_input_len(W, hop, N)
+    raw4 = raw[: 2 * (A * hop + (4 * W - 1) * hop + N)]
+    spectra = []
+    launches_before = demod_cuda.LAUNCHES
+    n_c, _ = stream(p, raw4, lambda o: spectra.append(np.array(o["spectrum_power"])))
+    if n_c != 4 or demod_cuda.LAUNCHES - launches_before != 4:
+        raise AssertionError(f"fft stream: {n_c} blocks, {demod_cuda.LAUNCHES - launches_before} K1 launches, expected 4")
+    worst = 0.0
+    for k, got in enumerate(spectra):
+        off = A * hop + k * W * hop
+        frame = decode_iq(raw[2 * (off + (W - 1) * hop) : 2 * (off + (W - 1) * hop + N)], SampleFormat.U8).astype(np.float64)
+        ref_p = np.abs(np.fft.fft((frame[:, 0] + 1j * frame[:, 1]) * p.window.cpu().double().numpy())) ** 2
+        if got.shape != (N,) or not np.isfinite(got).all():
+            raise AssertionError(f"fft stream block {k}: spectrum_power {got.shape} not finite or misshapen")
+        worst = max(worst, float(np.linalg.norm(got - ref_p) / np.linalg.norm(ref_p)))
+    if not worst <= 1e-4:
+        raise AssertionError(f"AFC spectrum: relative error {worst:.3e} against float64 > 1e-4")
+    x0 = torch.from_numpy(decode_iq(raw[2 * A * hop : 2 * (A * hop + L)], SampleFormat.U8)).to(device)
+    mags, iq = channelize_fft(x0, p.bins, p.window, hop=hop, fft_size=N, n_frames=W)
+    frames = make_frames(x0.double(), hop, N, W) * p.window.double()[:, None]
+    spec = torch.fft.fft(torch.view_as_complex(frames.contiguous()))[:, p.bins.long()]
+    got = torch.complex(iq[..., 0].double(), iq[..., 1].double())
+    snr_iq = 10 * torch.log10((spec.abs() ** 2).sum() / ((got - spec).abs() ** 2).sum()).item()
+    snr_mag = 10 * torch.log10((spec.abs() ** 2).sum() / ((mags.double() - spec.abs()) ** 2).sum()).item()
+    if not min(snr_iq, snr_mag) >= 80.0:
+        raise AssertionError(f"channelize_fft SNR iq {snr_iq:.2f} dB, mags {snr_mag:.2f} dB < 80 dB")
+    fft_ms = time_ms(lambda: channelize_fft(x0, p.bins, p.window, hop=hop, fft_size=N, n_frames=W), reps=10)
+    mm_ms = time_ms(lambda: channelize_matmul(x0, p.bins, p.window, hop=hop, fft_size=N, n_frames=W, taps=p._taps), reps=10)
+    out_bytes = W * C_FLAGSHIP * 12  # mags [W, C] f32 + iq [W, C, 2] f32
+    fft_bytes = L * 8 + N * 4 + C_FLAGSHIP * 4 + out_bytes
+    fft_flop = W * 5 * N * int(np.log2(N)) + 3 * W * C_FLAGSHIP
+    fft_bound = max(fft_bytes / HBM_BYTES_PER_S, fft_flop / FP32_FLOPS) * 1e3
+    mm_bound = max((L * 8 + 2 * C_FLAGSHIP * N * 4 + out_bytes) / HBM_BYTES_PER_S, 8 * W * N * C_FLAGSHIP / FP32_FLOPS) * 1e3
+    log(f"stream (c) [{card}]: channelizer fft + AFC on {sum(1 for s in afc_specs if s.afc)} channels, {n_c} blocks, "
+        f"K1 launches 4; channelize_fft SNR against float64 iq {snr_iq:.2f} dB, mags {snr_mag:.2f} dB; AFC spectrum "
+        f"relative error against float64 {worst:.3e} (worst of {n_c} blocks)")
+    log(f"channelizer on one block [{card}]: channelize_fft {fft_ms:.4f} ms (bound {fft_bound:.4f} ms, bytes: {fft_bytes} B; "
+        f"{fft_flop} flop), channelize_matmul {mm_ms:.4f} ms (bound {mm_bound:.4f} ms, operations)")
+
+    # the chain's packing on one block of production output
+    st_in = p.state
+    _, out = pipeline_block(x0, p.bins, p.window, p.params, st_in, hop=hop, fft_size=N, n_frames=W, use_fft=True,
+                            with_ctcss=p.any_ctcss, with_afc=True, with_iq=False, taps=p._taps, inv_perm=p._inv_perm)
+    pack_kw = dict(inv_perm=p._inv_perm, active_slots=STREAM_SLOTS, with_iq=False, with_afc=True, audio_fmt="i8bf",
+                   suppress_fade_tails=True, meta_per_chunk=True)
+    pack_ms = time_ms(lambda: pack_block(out, st_in, p.params, **pack_kw), reps=10)
+    pack_bytes = W * C_FLAGSHIP * 4 + C_FLAGSHIP * (1 + 4 + 4 + 1) + W * STREAM_SLOTS + STREAM_SLOTS * 8 + 4 + C_FLAGSHIP + N * 4
+    pack_bound = pack_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"chain packing on one block [{card}]: {pack_ms:.4f} ms (slots {STREAM_SLOTS}, i8bf, suppression); bound "
+        f"{pack_bound:.4f} ms, bytes: {pack_bytes} B")
+    return dict(launches=launches, wall_ms=wall_ms, device_ms=device_ms, d2h=d2h, fft_ms=fft_ms, mm_ms=mm_ms,
+                fft_bound=fft_bound, pack_ms=pack_ms, pack_bound=pack_bound, snr=min(snr_iq, snr_mag), afc_err=worst)
+
+
 def main() -> int:
     try:
         import torch
@@ -585,8 +858,10 @@ def main() -> int:
     phase_snr(device)
     t = phase_main_path(device, card, clock_mhz, step_instructions)
     p = phase_probe(device, card, t, clock_mhz)
+    s = phase_stream(device, card)
 
-    log(f"kernels: K1 demod (csrc/demod.cu) launches {t['launches']} parity ok "
+    log(f"kernels: K1 demod (csrc/demod.cu) launches {t['launches']} on the main path and {s['launches']} on the "
+        f"streaming path, parity ok "
         f"(audio {err['audio']:.3e}, iq {err['iq']:.3e}, flags exact, int/bool state exact, bit for bit: {err['bitwise']}); "
         f"K2 chain_probe (csrc/chain_probe.cu) launches {p['launches']} equal bit for bit in chain1, chain2, chain1w "
         f"(max |diff| {p['err']}), latency bound {p['latency_bound_ms']:.6f} ms")
@@ -595,7 +870,7 @@ def main() -> int:
         "route": "cuda",
         "source": "rtlsdr_airband_tpu_torch/csrc/demod.cu",
         "replaces": "rtlsdr_airband_tpu/ops/demod_pallas.py:848",
-        "launches": t["launches"],
+        "launches": t["launches"] + s["launches"],
         "max_abs_err": err["audio"],
         "ms": t["k1_ms"],
         "plain_ms": t["plain_ms"],

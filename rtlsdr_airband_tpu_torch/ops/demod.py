@@ -24,6 +24,7 @@ Notes on the arithmetic, which the kernel repeats operation for operation:
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -62,6 +63,13 @@ _M1PI = _f32(1.0 / np.pi)
 # AM squelch-close fade-out factors 0.94^i, i = 0..AGC_EXTRA-1
 # (rtl_airband.cpp:542-546), in float32 as the JAX package builds them
 FADE_DECAY = np.power(np.float32(0.94), np.arange(AGC_EXTRA, dtype=np.float32))
+
+
+@functools.cache
+def _fade_decay(device: torch.device) -> torch.Tensor:
+    """FADE_DECAY on ``device``, copied there once: a copy from the host
+    every block would make the host wait for the device's queue."""
+    return torch.as_tensor(FADE_DECAY, device=device)
 
 
 class ChannelParams(NamedTuple):
@@ -502,7 +510,7 @@ def apply_fade_and_tail(waveout_tail: torch.Tensor, waveout: torch.Tensor, fade:
     last = torch.cat([torch.full((1, C), -L, dtype=torch.int64, device=dev), last[:-1]])  # strictly before m
     age = pos - last
     in_region = age < A
-    decay = torch.as_tensor(FADE_DECAY, device=dev)[torch.clamp(age, max=A - 1)]
+    decay = _fade_decay(dev)[torch.clamp(age, max=A - 1)]
     base = torch.gather(w_full, 0, torch.clamp(last, min=0))
     w_full = torch.where(in_region, base * decay, w_full)
     return w_full[:W], w_full[W:]

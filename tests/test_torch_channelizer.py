@@ -9,7 +9,7 @@ import torch
 from rtlsdr_airband_tpu.ops import channelizer as jch
 from rtlsdr_airband_tpu.ops.window import blackman_harris_7
 from rtlsdr_airband_tpu_torch.ops import channelizer as tch
-from torch_port_common import assert_channelizer_close, dft_at_bins
+from torch_port_common import CHANNELIZER_SNR_DB, assert_channelizer_close, dft_at_bins, snr_db
 
 C, N, W, HOP = 16, 512, 64, 160
 
@@ -83,3 +83,33 @@ def test_channelize_matmul_matches_jax_and_f64():
     tm2, _ = tch.channelize_matmul(torch.from_numpy(x), None, None, hop=HOP, fft_size=N, n_frames=W, taps=taps)
     assert torch.equal(tm, tm2)
     assert tch.block_input_len(W, HOP, N) == jch.block_input_len(W, HOP, N)
+
+
+def test_channelize_fft_matches_jax_and_f64():
+    """The FFT path (complex64 FFT of every frame, then the bin gather)
+    against the float64 DFT, the JAX FFT path and the port's matched
+    filter, by the channelizer's bar."""
+    x, bins, window = _inputs()
+    _, jiq = jch.channelize_fft(jnp.asarray(x), jnp.asarray(bins), jnp.asarray(window), hop=HOP, fft_size=N, n_frames=W)
+    args = (torch.from_numpy(x), torch.from_numpy(bins), torch.from_numpy(window))
+    tm, tiq = tch.channelize_fft(*args, hop=HOP, fft_size=N, n_frames=W)
+    assert tuple(tm.shape) == (W, C) and tuple(tiq.shape) == (W, C, 2)
+    assert tm.dtype == tiq.dtype == torch.float32 and tiq.is_contiguous()
+    assert_channelizer_close(tm, tiq, dft_at_bins(x, bins, window, hop=HOP, fft_size=N, n_frames=W), "fft port")
+    jiq = np.asarray(jiq)
+    assert_channelizer_close(tm, tiq, jiq[..., 0] + 1j * jiq[..., 1].astype(np.float64), "fft port against jax")
+    _, miq = tch.channelize_matmul(*args, hop=HOP, fft_size=N, n_frames=W)
+    assert_channelizer_close(tm, tiq, miq[..., 0].numpy() + 1j * miq[..., 1].numpy().astype(np.float64), "fft against matmul")
+
+
+def test_last_frame_spectrum_power_matches_jax_and_f64():
+    """|X|^2 of the block's last frame (the AFC's input) against the JAX
+    function and float64, at the channelizer's bar."""
+    x, _, window = _inputs(seed=2)
+    want = np.asarray(jch.last_frame_spectrum_power(jnp.asarray(x), jnp.asarray(window), hop=HOP, fft_size=N, n_frames=W))
+    got = tch.last_frame_spectrum_power(torch.from_numpy(x), torch.from_numpy(window), hop=HOP, fft_size=N, n_frames=W)
+    assert tuple(got.shape) == want.shape == (N,) and got.dtype == torch.float32
+    frame = x[(W - 1) * HOP : (W - 1) * HOP + N].astype(np.float64)
+    ref = np.abs(np.fft.fft((frame[:, 0] + 1j * frame[:, 1]) * window.astype(np.float64))) ** 2
+    assert snr_db(got.numpy(), ref) >= CHANNELIZER_SNR_DB
+    assert snr_db(got.numpy(), want.astype(np.float64)) >= CHANNELIZER_SNR_DB

@@ -1,5 +1,7 @@
 """The nvcc-built kernels against their plain PyTorch versions, on the card:
-the demod kernel K1 and the chain-latency probe K2.
+the demod kernel K1 and the chain-latency probe K2; the streaming Pipeline
+on the card (chunked dispatch with a copy stream equal to single-block
+dispatch, K1 once a block) and the FFT channelizer's precision.
 
 Needs an NVIDIA GPU and nvcc; skips without a card.  The file imports
 neither jax nor the JAX package, so it also runs on a machine that has
@@ -21,9 +23,16 @@ from rtlsdr_airband_tpu_torch import interop
 from rtlsdr_airband_tpu_torch.constants import AGC_EXTRA
 from rtlsdr_airband_tpu_torch.ops import demod_cuda
 from rtlsdr_airband_tpu_torch.ops.demod import demod_block
+from rtlsdr_airband_tpu_torch.ops.channelizer import block_input_len, channelize_fft
 from rtlsdr_airband_tpu_torch.ops.params import ChannelSpec, init_demod_state, make_channel_params
+from rtlsdr_airband_tpu_torch.ops.window import blackman_harris_7
+from rtlsdr_airband_tpu_torch.runtime.pipeline import Pipeline, PipelineConfig
 from rtlsdr_airband_tpu_torch.scripts import bench_chain_probe as probe
-from torch_port_common import CENTER, FS, N, SPEC_KW, active_state, assert_bitwise, spec_population
+from rtlsdr_airband_tpu_torch.utils.siggen import am_carrier_iq, complex_noise
+from torch_port_common import (
+    CENTER, FS, N, SPEC_KW, active_state, assert_bitwise, assert_channelizer_close, dft_at_bins, feed_all, spec_population,
+    to_u8,
+)
 
 
 @pytest.fixture
@@ -136,3 +145,73 @@ def test_chain_probe_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="compiled"):
         probe.chain_probe(torch.zeros(2, 32, 128, device=cuda_device), "chain1", 5, links=7)
     assert probe.LAUNCHES == before
+
+
+def _card_stream(specs, wave_rate, n_blocks):
+    """A u8 stream of ``n_blocks`` blocks after priming: AM carriers on three
+    channels, gated off for the middle third, over noise."""
+    hop = int(round(FS / wave_rate))
+    n = 100 * hop + n_blocks * (wave_rate // 8) * hop + N
+    z = complex_noise(n, 0.01, 3)
+    gate = np.ones(n, np.float32)
+    gate[n // 3 : 2 * n // 3] = 0.0
+    for i in (0, 1, 4):
+        z += gate * am_carrier_iq(FS, specs[i].frequency - CENTER, n, carrier_ampl=0.3)
+    return to_u8(z)
+
+
+@pytest.mark.cuda
+def test_pipeline_chunked_async_equals_single_block_on_card(cuda_device):
+    """C = 130, W = 257: chunk_blocks=4 with async_depth=1 (outputs fetched
+    on the copy stream behind the next chunk) equals chunk_blocks=1 with
+    async_depth=0 in every yielded key, bit for bit, and K1 ran once a
+    block."""
+    specs = [ChannelSpec(**k) for k in spec_population(130)]
+    wave_rate = 8 * 257
+    raw = _card_stream(specs, wave_rate, n_blocks=10)
+    runs = {}
+    for chunk, depth in ((1, 0), (4, 1)):
+        cfg = PipelineConfig(sample_rate=FS, center_freq=CENTER, wave_rate=wave_rate, sample_format="u8",
+                             fullscale=127.5, chunk_blocks=chunk, async_depth=depth, fetch_open_flags=True)
+        p = Pipeline(cfg, specs)
+        before = demod_cuda.LAUNCHES
+        runs[chunk] = feed_all(p, raw, 200_000)
+        assert demod_cuda.LAUNCHES - before == p.blocks_processed == len(runs[chunk]) >= 9
+    assert any(o["active"].any() for o in runs[1])
+    for i, (a, b) in enumerate(zip(runs[1], runs[4])):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes(), f"block {i} {k}"
+
+
+@pytest.mark.cuda
+def test_pipeline_launches_k1_once_a_block(cuda_device):
+    """The production fetch economy on the card: K1 launches equal the
+    blocks processed, the state stays on the card, every block has finite
+    audio."""
+    specs = [ChannelSpec(**k) for k in spec_population(130)]
+    cfg = PipelineConfig(sample_rate=FS, center_freq=CENTER, wave_rate=16000, sample_format="u8", fullscale=127.5,
+                         chunk_blocks=2, async_depth=1, active_slots=16, fetch_audio_fmt="i8bf",
+                         suppress_fade_tails=True, fetch_meta_per_chunk=True)
+    p = Pipeline(cfg, specs)
+    p.warm()
+    before = demod_cuda.LAUNCHES
+    outs = feed_all(p, _card_stream(specs, 16000, n_blocks=5), 200_000)
+    assert demod_cuda.LAUNCHES - before == p.blocks_processed == len(outs) == 5
+    assert p.state.noise_floor.device.type == "cuda" and p.cfg.demod_backend == "cuda"
+    for o in outs:
+        assert o["audio"].shape == (2000, 130) and np.isfinite(o["audio"]).all()
+
+
+@pytest.mark.cuda
+def test_channelize_fft_reaches_the_bar_on_card(cuda_device):
+    """cuFFT in complex64 against the float64 DFT at the bins: >= 80 dB."""
+    rng = np.random.default_rng(11)
+    W, hop, C = 500, 160, 1024
+    x = rng.normal(0, 0.3, (block_input_len(W, hop, N), 2)).astype(np.float32)
+    bins = rng.integers(0, N, C).astype(np.int32)
+    window = blackman_harris_7(N)
+    m, iq = channelize_fft(torch.from_numpy(x).to(cuda_device), torch.from_numpy(bins).to(cuda_device),
+                           torch.from_numpy(window).to(cuda_device), hop=hop, fft_size=N, n_frames=W)
+    assert m.device.type == "cuda"
+    assert_channelizer_close(m.cpu(), iq.cpu(), dft_at_bins(x, bins, window, hop=hop, fft_size=N, n_frames=W), "cuFFT")

@@ -4,6 +4,8 @@ package's block program (``demod_backend="xla"``), block by block on the
 16-channel active flagship scene, and the port's flagship builders against
 the JAX ones."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,12 +15,13 @@ import rtlsdr_airband_tpu.runtime.pipeline as jax_pipeline
 import rtlsdr_airband_tpu_torch.runtime.pipeline as port_pipeline
 from rtlsdr_airband_tpu.models.flagship import build_flagship as jax_build_flagship
 from rtlsdr_airband_tpu.models.flagship import build_flagship_stream as jax_build_flagship_stream
+from rtlsdr_airband_tpu.ops.channelizer import channelize_fft as jax_channelize_fft
 from rtlsdr_airband_tpu.ops.channelizer import channelize_matmul as jax_channelize_matmul
 from rtlsdr_airband_tpu_torch import interop
 from rtlsdr_airband_tpu_torch.models.flagship import FlagshipBlock, build_flagship, build_flagship_stream
-from rtlsdr_airband_tpu_torch.ops.channelizer import channelize_matmul
+from rtlsdr_airband_tpu_torch.ops.channelizer import channelize_fft, channelize_matmul
 from rtlsdr_airband_tpu_torch.runtime.pipeline import pipeline_block
-from torch_port_common import assert_channelizer_close, assert_close, dft_at_bins, jax_flat
+from torch_port_common import CHANNELIZER_SNR_DB, assert_channelizer_close, assert_close, dft_at_bins, jax_flat, snr_db
 
 PORT_KW = ("hop", "fft_size", "n_frames", "fm_quadri", "with_ctcss", "with_iq")
 
@@ -38,21 +41,26 @@ class SharedChannelizer:
     port's channelizer is held on its own against the float64 DFT by the
     channelizer's bar, >= 80 dB SNR (as in tests/test_torch_channelizer.py).
     The port's decoded input must equal JAX's bit for bit.  Call the JAX
-    block program first for each block."""
+    block program first for each block.  Both channelizers, the matched
+    filter and the FFT, are shared so."""
 
     def __init__(self, monkeypatch):
-        monkeypatch.setattr(jax_pipeline, "channelize_matmul", self._jax)
-        monkeypatch.setattr(port_pipeline, "channelize_matmul", self._port)
+        for name, jax_fn, port_fn in (
+            ("channelize_matmul", jax_channelize_matmul, channelize_matmul),
+            ("channelize_fft", jax_channelize_fft, channelize_fft),
+        ):
+            monkeypatch.setattr(jax_pipeline, name, functools.partial(self._jax, jax_fn))
+            monkeypatch.setattr(port_pipeline, name, functools.partial(self._port, port_fn))
         self.calls = 0
 
-    def _jax(self, x, bins, window, **kw):
+    def _jax(self, fn, x, bins, window, **kw):
         self.x = np.asarray(x)
-        self.out = jax_channelize_matmul(x, bins, window, **kw)
+        self.out = fn(x, bins, window, **kw)
         return self.out
 
-    def _port(self, x, bins, window, **kw):
+    def _port(self, fn, x, bins, window, **kw):
         np.testing.assert_array_equal(x.numpy(), self.x)
-        m, iq = channelize_matmul(x, bins, window, **kw)
+        m, iq = fn(x, bins, window, **kw)
         shape = {k: kw[k] for k in ("hop", "fft_size", "n_frames")}
         assert_channelizer_close(m, iq, dft_at_bins(self.x, bins.numpy(), window.numpy(), **shape), f"channelizer call {self.calls}")
         self.calls += 1
@@ -89,6 +97,33 @@ def test_active_scene_matches_jax_block_by_block(monkeypatch):
         closed += int((flags[:-1, hot] & ~flags[1:, hot]).sum())
     assert opened > 0 and closed > 0 and chan.calls == len(jx)
     assert int(np.asarray(jstate.slow.found).sum() + np.asarray(jstate.fast.found).sum()) > 0
+
+
+def test_fft_channelizer_and_afc_match_jax_block(monkeypatch):
+    """The block program with the FFT channelizer and the AFC spectrum
+    (use_fft, with_afc) against JAX's, op by op, on the active scene: every
+    output and the state within the bars, ``spectrum_power`` (|X|^2 of the
+    block's last frame, each framework's own FFT) within 1e-4 of its peak
+    and at >= 80 dB against float64."""
+    chan = SharedChannelizer(monkeypatch)
+    jkw, jbins, jwin, jparams, jstate, jx, hot = jax_build_flagship_stream(n_channels=16, n_blocks=4)
+    kw = {k: jkw[k] for k in PORT_KW}
+    params = _port_params(jparams)
+    state = interop.state_from_numpy(jax_flat(jstate), device="cpu")
+    bins, window = torch.from_numpy(np.array(jbins)), torch.from_numpy(np.array(jwin))
+    for k, xb in enumerate(jx):
+        jstate, jout = jax_block(xb, jbins, jwin, jparams, jstate, **dict(jkw, use_fft=True, with_afc=True))
+        state, out = pipeline_block(torch.from_numpy(np.array(xb)), bins, window, params, state, use_fft=True, with_afc=True, **kw)
+        want, got = np.asarray(jout.pop("spectrum_power")), out.pop("spectrum_power").numpy()
+        assert_close(jout, out, f"block {k}")
+        assert_close(jax_flat(jstate), interop.state_to_numpy(state), f"block {k} state")
+        assert got.shape == want.shape == (kw["fft_size"],) and got.dtype == np.float32
+        assert np.abs(got.astype(np.float64) - want).max() <= 1e-4 * want.max(), f"block {k} spectrum_power"
+        start = (kw["n_frames"] - 1) * kw["hop"]
+        frame = np.asarray(xb, np.float64)[start : start + kw["fft_size"]]
+        ref = np.abs(np.fft.fft((frame[:, 0] + 1j * frame[:, 1]) * np.asarray(jwin, np.float64))) ** 2
+        assert snr_db(got, ref) >= CHANNELIZER_SNR_DB
+    assert chan.calls == len(jx)
 
 
 def test_raw_u8_input_and_user_order_restore(monkeypatch):

@@ -11,6 +11,7 @@ from rtlsdr_airband_tpu_torch import interop
 from rtlsdr_airband_tpu_torch.constants import AGC_EXTRA
 from rtlsdr_airband_tpu_torch.ops.demod import OPEN
 from rtlsdr_airband_tpu_torch.ops.params import init_demod_state
+from rtlsdr_airband_tpu_torch.utils.siggen import am_carrier_iq, complex_noise, nfm_carrier_iq
 
 FS, N, CENTER = 2_560_000, 512, 120_000_000
 
@@ -124,6 +125,68 @@ def active_state(params, C: int, rng, device):
     for bank, left in (("fast", 40), ("slow", 100)):
         d[f"{bank}.count"] = np.where(ct, getattr(params, f"{bank}_window").cpu().numpy() - left, 0).astype(np.int32)
     return interop.state_from_numpy(d, device=device)
+
+
+def to_u8(z: np.ndarray) -> bytes:
+    """Complex baseband as an interleaved u8 byte stream (the RTL-SDR's)."""
+    u8 = np.empty(2 * len(z), np.uint8)
+    u8[0::2] = np.clip(np.round(z.real * 127.5 + 127.5), 0, 255).astype(np.uint8)
+    u8[1::2] = np.clip(np.round(z.imag * 127.5 + 127.5), 0, 255).astype(np.uint8)
+    return u8.tobytes()
+
+
+def scene_u8(secs: float = 1.6) -> bytes:
+    """An AM carrier at +400 kHz gated off mid-stream, so squelch opens and
+    closes across chunk boundaries, plus noise (tests/test_pipeline_chain.py
+    ::_scene_u8)."""
+    n = int(FS * secs)
+    z = am_carrier_iq(FS, 400_000, n, carrier_ampl=0.35) + complex_noise(n, 0.02, 0)
+    g = np.ones(n, np.float32)
+    g[int(n * 0.45) : int(n * 0.62)] = 0.0
+    return to_u8(z * g + complex_noise(n, 0.01, 5))
+
+
+def nfm_scene_u8(secs: float = 2.0) -> bytes:
+    """An AM carrier (+400 kHz) and an NFM carrier (+300 kHz) gated off at
+    output offsets that land squelch closes both mid-block and within
+    AGC_EXTRA samples of a block boundary at wave_rate 8000
+    (tests/test_pipeline_chain.py::_nfm_scene_u8)."""
+    n = int(FS * secs)
+    tone = np.sin(2 * np.pi * 900.0 * np.arange(int(8000 * secs)) / 8000).astype(np.float64)
+    znfm = nfm_carrier_iq(FS, 300_000, n, audio=tone, audio_rate=8000)
+    g = np.ones(n, np.float32)
+    hop = FS // 8000
+    for off_blocks, off_out in ((3, 690), (6, 760), (9, 790), (12, 820)):
+        a = (off_blocks * 1000 + off_out) * hop
+        g[a : a + 150 * hop] = 0.0  # 150 output samples of dead air
+    zam = am_carrier_iq(FS, 400_000, n, carrier_ampl=0.35)
+    gam = np.ones(n, np.float32)
+    gam[int(n * 0.45) : int(n * 0.6)] = 0.0
+    return to_u8(znfm * g + zam * gam + complex_noise(n, 0.015, 2))
+
+
+# the channel sets of tests/test_pipeline_chain.py, as keyword sets for both packages
+SCENE_SPECS = [
+    dict(frequency=120_400_000, modulation="am"),
+    dict(frequency=120_700_000, modulation="nfm", ctcss=100.0),
+    dict(frequency=120_395_000, modulation="am", bandwidth=6000.0),
+]
+NFM_SCENE_SPECS = [dict(frequency=120_400_000, modulation="am"), dict(frequency=120_300_000, modulation="nfm")]
+
+
+def feed_all(p, raw, step_bytes=512_000) -> list:
+    """Feed ``raw`` in steps, then flush; copies of the yielded dicts (in
+    gather mode the dense audio/iq buffers are reused between blocks)."""
+    outs = []
+
+    def keep(gen):
+        for o in gen:
+            outs.append({k: np.array(v) for k, v in o.items()})
+
+    for i in range(0, len(raw), step_bytes):
+        keep(p.feed(raw[i : i + step_bytes]))
+    keep(p.flush())
+    return outs
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
