@@ -50,7 +50,23 @@ of JAX and nothing of the JAX package.  Phases, each fatal on failure:
        spectrum_power against the float64 spectrum of its decoded last
        frame, channelize_fft timed beside channelize_matmul on one block,
        the chain's packing timed on one block, with their bounds;
-8. the kernels line, the JSON kernels line, the card line and the result.
+8. the App, as a user runs it: libconfig text as scripts/bench_app.py
+   writes it (flagship_specs(8192) frequencies, all AM with a manual
+   squelch threshold, one CTCSS channel among the hot ones, a udp_stream
+   sink on every channel, wave_rate 16000, chunk 8, i8bf, fade-tail
+   suppression, meta per chunk, APP_SLOTS active slots) and a u8 file of
+   about 4 s of air (4 AM carriers keyed on over noise, sized so the chunks
+   consume it exactly); App(cfg) on the card after a warm() of its
+   pipeline, start(), _service_once() until the input is spent, stop():
+   K1 launches = blocks processed = what the file gives, the input ended by
+   EOF, the modulating tone at two hot channels' UDP ports, nothing but
+   silence at a cold one, no overflow; the wall a block (first chunk
+   dropped) and its realtime factor, D2H bytes and channels open a block,
+   the host split between Pipeline.feed and the block handler.  Then the
+   CLI: ``python3 -m rtlsdr_airband_tpu_torch -F -e -c <conf>`` on a small
+   config with a file sink (exit 0, an audio file over 1000 bytes), and
+   ``--check-config`` on every examples/*.conf;
+9. the kernels line, the JSON kernels line, the card line and the result.
 """
 
 from __future__ import annotations
@@ -58,6 +74,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -79,6 +96,11 @@ FP32_DEP_LATENCY_CYCLES = 4
 DEMOD_STEP_FLOPS = 95
 STREAM_BLOCKS = 17  # after priming: two chunks of 8 and one block for flush()
 STREAM_SLOTS = 256
+APP_SECONDS = 4.0  # of air in the App phase's input file
+APP_CHUNK = 8
+APP_HOT = 4  # carriers; each opens ~80-150 channels at 8192 (scripts/bench_app.py)
+APP_SLOTS = 1024
+APP_UDP_BASE = 20000  # channel i streams to 127.0.0.1:APP_UDP_BASE + i
 
 
 def log(msg: str) -> None:
@@ -819,6 +841,266 @@ def phase_stream(device, card: str) -> dict:
                 fft_bound=fft_bound, pack_ms=pack_ms, pack_bound=pack_bound, snr=min(snr_iq, snr_mag), afc_err=worst)
 
 
+def app_scene(path: str, freqs: list[int], hot: list[int], total: int, *, center: int, fs: int) -> list[float]:
+    """The App phase's input as scripts/bench_app.py::build_scene writes it:
+    noise, and one AM carrier a hot channel, keyed on after a quarter of the
+    file (an always-on carrier would become the noise floor), its tone at the
+    full IQ rate, the carriers' sum inside the u8 range.  Returns the tones."""
+    from rtlsdr_airband_tpu_torch.utils.siggen import complex_noise
+
+    z = complex_noise(total, 0.02, seed=11)
+    t = np.arange(total, dtype=np.float64) / fs
+    ampl = min(0.4, 0.5 / np.sqrt(max(1, len(hot))))
+    gate = (np.arange(total) >= int(total * 0.25)).astype(np.float32)
+    tones = [500.0 + 130.0 * k for k in range(len(hot))]
+    for k, ci in enumerate(hot):
+        env = 1.0 + 0.5 * 0.7 * np.sin(2 * np.pi * tones[k] * t)
+        z += (ampl * env * np.exp(2j * np.pi * (freqs[ci] - center) * t)).astype(np.complex64) * gate
+    iq = np.empty(total * 2, np.float32)
+    iq[0::2], iq[1::2] = z.real, z.imag
+    np.clip(np.round(iq * 127.5 + 127.5), 0, 255).astype(np.uint8).tofile(path)
+    return tones
+
+
+def app_config(iq_path: str, freqs: list[int], ctcss_channel: int, *, center: int, fs: int, wave_rate: int) -> str:
+    """libconfig text for the App phase (scripts/bench_app.py's, with a UDP
+    port of its own for every channel)."""
+    from rtlsdr_airband_tpu_torch.ops.levels import level_to_dbfs
+
+    # manual squelch midway (log scale) between the noise and the carrier bin
+    # levels: a deterministic open set (scripts/bench_app.py)
+    thr = round(float(level_to_dbfs(1.0, 512)), 1)
+    chans = ", ".join(
+        f'{{ freq = {f}; modulation = "am";{" ctcss = 100.0;" if i == ctcss_channel else ""} squelch_threshold = {thr}; '
+        f'outputs: ( {{ type = "udp_stream"; dest_address = "127.0.0.1"; dest_port = {APP_UDP_BASE + i}; }} ); }}'
+        for i, f in enumerate(freqs)
+    )
+    return (
+        f"fft_size = 512;\nwave_rate = {wave_rate};\nblocks_per_dispatch = {APP_CHUNK};\n"
+        f'active_fetch_slots = {APP_SLOTS};\nfetch_audio_fmt = "i8bf";\nsuppress_fade_tails = true;\n'
+        f"fetch_meta_per_chunk = true;\n"
+        f'devices: ( {{ type = "file"; filepath = "{iq_path}"; centerfreq = {center}; sample_rate = {fs}; '
+        f'sample_format = "u8"; speedup_factor = 0.0; channels: ( {chans} ); }} );\n'
+    )
+
+
+class UdpListener:
+    """Collects the datagrams sent to one local UDP port, on a thread."""
+
+    def __init__(self, port: int):
+        import socket
+        import threading
+
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4 << 20)
+        self.sock.bind(("127.0.0.1", port))
+        self.sock.settimeout(0.05)
+        self.chunks: list[bytes] = []
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._loop, daemon=True)
+        self._t.start()
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self.chunks.append(self.sock.recv(65536))
+            except OSError:
+                continue
+
+    def audio(self) -> np.ndarray:
+        """Stop listening (after a last drain) and return the float32 audio."""
+        import time as _t
+
+        _t.sleep(0.2)
+        self._stop.set()
+        self._t.join()
+        self.sock.close()
+        return np.frombuffer(b"".join(self.chunks), np.float32)
+
+
+def tone_peak(audio: np.ndarray, rate: int) -> float:
+    """The strongest frequency of ``audio`` above the lowest few bins."""
+    seg = audio[-min(8192, audio.size):].astype(np.float64)
+    spec = np.abs(np.fft.rfft(seg * np.hanning(seg.size)))
+    return float(np.fft.rfftfreq(seg.size, 1 / rate)[np.argmax(spec[5:]) + 5])
+
+
+def raise_fd_limit(need: int) -> None:
+    """Soft RLIMIT_NOFILE up to the hard limit; fails if even that is short
+    of ``need`` (one UDP socket a channel: the population is never cut)."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if hard != resource.RLIM_INFINITY and hard < need:
+        raise AssertionError(f"RLIMIT_NOFILE hard limit {hard} < {need} (one UDP socket a channel + 256)")
+    resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    log(f"app: RLIMIT_NOFILE soft {soft} -> {resource.getrlimit(resource.RLIMIT_NOFILE)[0]}, hard {hard}")
+
+
+def phase_app(card: str, workdir: str) -> dict:
+    """The port's App at full width on the card (phase 8 of the module
+    docstring)."""
+    import os
+
+    import torch
+
+    from rtlsdr_airband_tpu_torch.app import App
+    from rtlsdr_airband_tpu_torch.constants import AGC_EXTRA
+    from rtlsdr_airband_tpu_torch.inputs.base import InputState
+    from rtlsdr_airband_tpu_torch.models.flagship import CENTER_FREQ, flagship_specs
+    from rtlsdr_airband_tpu_torch.ops import demod_cuda
+    from rtlsdr_airband_tpu_torch.runtime.config import load_config
+
+    fs, wave_rate, N = 2_560_000, 16000, 512
+    hop, W = fs // wave_rate, wave_rate // 8
+    raise_fd_limit(C_FLAGSHIP + 256)
+    freqs = [s.frequency for s in flagship_specs(C_FLAGSHIP, CENTER_FREQ, fs)]
+    hot = [int(i) for i in np.linspace(0, C_FLAGSHIP - 1, APP_HOT).astype(int)]
+    n_chunks = max(1, round(APP_SECONDS / 0.125 / APP_CHUNK))
+    total = AGC_EXTRA * hop + n_chunks * APP_CHUNK * W * hop + (N - hop)
+    want_blocks = (total - AGC_EXTRA * hop - (N - hop)) // (W * hop)
+    t0 = time.perf_counter()
+    iq_path = os.path.join(workdir, "app_scene.cu8")
+    tones = app_scene(iq_path, freqs, hot, total, center=CENTER_FREQ, fs=fs)
+    conf = os.path.join(workdir, "app.conf")
+    with open(conf, "w") as fh:
+        fh.write(app_config(iq_path, freqs, min(hot), center=CENTER_FREQ, fs=fs, wave_rate=wave_rate))
+    t_scene = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = load_config(conf)
+    t_parse = time.perf_counter() - t0
+    # two hot channels that are not the CTCSS one (its squelch waits for a
+    # tone the carriers do not carry), and a cold channel between carriers
+    listen = {hot[1]: tones[1], hot[2]: tones[2]}
+    cold = (hot[0] + hot[1]) // 2
+    listeners = {ci: UdpListener(APP_UDP_BASE + ci) for ci in [*listen, cold]}
+
+    t0 = time.perf_counter()
+    app = App(cfg)
+    rt = app.devices[0]
+    p = rt.pipeline
+    p.warm()
+    t_build = time.perf_counter() - t0
+    log(f"app: input file {os.path.getsize(iq_path)} B ({total} samples, {APP_SECONDS} s of air, "
+        f"made in {t_scene:.1f} s), config {os.path.getsize(conf)} B parsed in {t_parse:.1f} s, App + warm() {t_build:.1f} s; "
+        f"C={p.C} W={p.W} hop={p.hop} chunk {p.cfg.chunk_blocks} slots {p.cfg.active_slots} {p.cfg.audio_fmt} "
+        f"backend {p.cfg.demod_backend} on {p.device}; hot channels {hot} (CTCSS {min(hot)}), tones {tones}")
+
+    stamps, per_block = [], []
+    spent = {"service": 0.0, "handler": 0.0}
+    handle, service = app._handle_block, app._service_device
+
+    def timed_handle(r, out):
+        t = time.perf_counter()
+        handle(r, out)
+        now = time.perf_counter()
+        spent["handler"] += now - t
+        stamps.append(now)
+        per_block.append((int(np.asarray(out["active"]).sum()), int(out.get("gather_overflow", 0))))
+
+    def timed_service(r):
+        t = time.perf_counter()
+        worked = service(r)
+        spent["service"] += time.perf_counter() - t
+        return worked
+
+    app._handle_block, app._service_device = timed_handle, timed_service
+    demod_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    app.start()
+    try:
+        while any(r.alive for r in app.devices):
+            if not app._service_once():
+                time.sleep(0.002)
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("app: the input was not spent within 300 s")
+        t_loop = time.perf_counter() - t0
+    finally:
+        app.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = demod_cuda.LAUNCHES
+    heard = {ci: lst.audio() for ci, lst in listeners.items()}
+
+    if not (launches == p.blocks_processed == len(stamps) == want_blocks):
+        raise AssertionError(f"app: K1 launches {launches}, blocks processed {p.blocks_processed}, handled {len(stamps)}, "
+                             f"the file gives {want_blocks}")
+    if rt.input.state != InputState.FAILED or rt.input.available_bytes() or p._inflight:
+        raise AssertionError(f"app: the device did not end by its input's EOF (input {rt.input.state}, "
+                             f"{rt.input.available_bytes()} B unread, {len(p._inflight)} chunks in flight)")
+    overflows = p.gather_overflow_count
+    if overflows:
+        raise AssertionError(f"app: {overflows} slot overflows at {APP_SLOTS} slots")
+    for ci, tone in listen.items():
+        a = heard[ci]
+        if a.size < W or not np.isfinite(a).all():
+            raise AssertionError(f"app: channel {ci}'s UDP port got {a.size} samples")
+        peak = tone_peak(a, wave_rate)
+        if abs(peak - tone) > 25.0:
+            raise AssertionError(f"app: channel {ci}'s UDP audio peaks at {peak:.1f} Hz, not at its {tone:.0f} Hz tone")
+        log(f"app: channel {ci} UDP port {APP_UDP_BASE + ci}: {a.size} samples, peak {peak:.1f} Hz (tone {tone:.0f} Hz)")
+    c = heard[cold]
+    if c.size and float(np.abs(c).max()) > 1e-3:
+        raise AssertionError(f"app: cold channel {cold} streamed audio up to {np.abs(c).max():.3e}")
+    log(f"app: cold channel {cold}: {c.size} samples{' (silence)' if c.size else ''}")
+
+    k = min(APP_CHUNK, len(stamps) // 2)  # the first chunk dropped: pipeline fill
+    steady_ms = (stamps[-1] - stamps[k - 1]) / (len(stamps) - k) * 1e3
+    d2h = p.fetched_bytes / p.blocks_processed
+    feed_ms = (spent["service"] - spent["handler"]) / len(stamps) * 1e3
+    log(f"app [{card}]: {len(stamps)} blocks, K1 launches {launches} = blocks processed = the file's {want_blocks}; "
+        f"input ended by EOF; channels open a block {[a for a, _ in per_block]}; overflows {overflows}; "
+        f"D2H {d2h:.0f} B a block")
+    log(f"app timing [{card}]: wall a block {steady_ms:.3f} ms steady (first {k} blocks dropped), realtime factor "
+        f"{(W / wave_rate) / (steady_ms / 1e3):.2f}; loop {t_loop:.3f} s, with stop() {wall:.3f} s; host a block: "
+        f"Pipeline.feed {feed_ms:.3f} ms, block handler {spent['handler'] / len(stamps) * 1e3:.3f} ms")
+    return dict(launches=launches, steady_ms=steady_ms, d2h=d2h, blocks=len(stamps))
+
+
+def phase_cli(workdir: str) -> None:
+    """The CLI as a user starts it, on a small config with a file sink, and
+    --check-config on every example."""
+    import glob
+    import os
+
+    from rtlsdr_airband_tpu_torch.utils.siggen import am_carrier_iq, complex_noise
+
+    fs, wr, secs = 2_560_000, 8000, 2.0
+    n = int(fs * secs)
+    tone = (0.9 * np.sin(2 * np.pi * 800 * np.arange(int(wr * secs)) / wr)).astype(np.float32)
+    z = am_carrier_iq(fs, 400_000, n, audio=tone, carrier_ampl=0.4, mod_index=0.8, audio_rate=wr) + complex_noise(n, 0.005, seed=7)
+    u8 = np.empty(2 * n, np.uint8)
+    u8[0::2] = np.clip(np.round(z.real * 127.5 + 127.5), 0, 255)
+    u8[1::2] = np.clip(np.round(z.imag * 127.5 + 127.5), 0, 255)
+    iq = os.path.join(workdir, "cli.cu8")
+    u8.tofile(iq)
+    out = os.path.join(workdir, "cli_out")
+    conf = os.path.join(workdir, "cli.conf")
+    with open(conf, "w") as fh:
+        fh.write(f'fft_size = 512;\ndevices: ({{ type = "file"; filepath = "{iq}"; sample_format = "u8"; '
+                 f'sample_rate = {fs}; centerfreq = 120.0; speedup_factor = 0.0; channels: ({{ freq = 120.4; '
+                 f'outputs: ( {{ type = "file"; directory = "{out}"; filename_template = "twr"; }} ); }}); }});\n')
+    cmd = [sys.executable, "-m", "rtlsdr_airband_tpu_torch"]
+    examples = sorted(glob.glob("examples/*.conf"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["-F", "-e", "-c", conf, "--max-seconds", "60"], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)]
+    procs += [subprocess.Popen(cmd + ["--check-config", "-c", ex], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+              for ex in examples]
+    outs = [pr.communicate(timeout=300)[0] for pr in procs]
+    for pr, o, what in zip(procs, outs, ["the run"] + examples):
+        if pr.returncode != 0:
+            raise AssertionError(f"cli {what}: exit {pr.returncode}\n{o[-3000:]}")
+    files = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    sizes = [os.path.getsize(os.path.join(out, f)) for f in files]
+    if len(files) != 1 or sizes[0] <= 1000:
+        raise AssertionError(f"cli: audio files {dict(zip(files, sizes))}, expected one over 1000 B\n{outs[0][-3000:]}")
+    log(f"cli: python3 -m rtlsdr_airband_tpu_torch -F -e -c cli.conf exit 0, wrote {files[0]} ({sizes[0]} B); "
+        f"--check-config exit 0 on {', '.join(os.path.basename(e) for e in examples)}; {time.perf_counter() - t0:.1f} s")
+    for e, o in zip(examples, outs[1:]):
+        log(f"  {o.strip().splitlines()[-1]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -859,9 +1141,12 @@ def main() -> int:
     t = phase_main_path(device, card, clock_mhz, step_instructions)
     p = phase_probe(device, card, t, clock_mhz)
     s = phase_stream(device, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        a = phase_app(card, workdir)
+        phase_cli(workdir)
 
-    log(f"kernels: K1 demod (csrc/demod.cu) launches {t['launches']} on the main path and {s['launches']} on the "
-        f"streaming path, parity ok "
+    log(f"kernels: K1 demod (csrc/demod.cu) launches {t['launches']} on the main path, {s['launches']} on the "
+        f"streaming path and {a['launches']} in the App, parity ok "
         f"(audio {err['audio']:.3e}, iq {err['iq']:.3e}, flags exact, int/bool state exact, bit for bit: {err['bitwise']}); "
         f"K2 chain_probe (csrc/chain_probe.cu) launches {p['launches']} equal bit for bit in chain1, chain2, chain1w "
         f"(max |diff| {p['err']}), latency bound {p['latency_bound_ms']:.6f} ms")
@@ -870,7 +1155,7 @@ def main() -> int:
         "route": "cuda",
         "source": "rtlsdr_airband_tpu_torch/csrc/demod.cu",
         "replaces": "rtlsdr_airband_tpu/ops/demod_pallas.py:848",
-        "launches": t["launches"] + s["launches"],
+        "launches": t["launches"] + s["launches"] + a["launches"],
         "max_abs_err": err["audio"],
         "ms": t["k1_ms"],
         "plain_ms": t["plain_ms"],

@@ -9,8 +9,13 @@ launched by ``ops.demod_cuda.demod_block_cuda``), and
 so is the chain-latency probe (``csrc/chain_probe.cu``, driven by
 ``scripts.bench_chain_probe``).
 
-Entry points take ``device=`` and default to ``"cuda"``; pass
-``device="cpu"`` to run the plain PyTorch versions on the CPU.
+The program a user starts is ``python -m rtlsdr_airband_tpu_torch -c
+<config>`` (``cli.py``, ``app.App``): a libconfig file, the input drivers,
+the streaming ``runtime.pipeline.Pipeline`` and the sinks.
+
+Entry points take ``device=`` (the CLI ``--device``) and default to
+``"cuda"``; pass ``device="cpu"`` to run the plain PyTorch versions on the
+CPU.
 """
 
 __version__ = "0.1.0"

@@ -5,6 +5,9 @@ A copy of what the port uses from ``rtlsdr_airband_tpu/constants.py``.
 
 from __future__ import annotations
 
+# Default SDR sample rate (samples/sec, complex IQ). reference: rtl_airband.h:64-65
+DEFAULT_SAMPLE_RATE = 2_560_000
+
 # Look-back / look-ahead margin for AGC and squelch (samples).
 # reference: rtl_airband.h:75 (AGC_EXTRA = 100)
 AGC_EXTRA = 100

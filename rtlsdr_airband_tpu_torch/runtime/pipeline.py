@@ -26,6 +26,7 @@ channelizer outputs to seed the demod's look-back delay lines.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass
 from typing import Iterator
@@ -377,13 +378,19 @@ class Pipeline:
         self.cfg = cfg
         self.specs = specs
         self.device = _torch_device(cfg.device)
+        # the pipeline's own compute stream on the card: every launch, copy
+        # and allocation of its tensors is made on it (see _on_stream), so
+        # feed/flush may be called from any thread (the App's per-device
+        # demod workers feed, its main thread flushes at stop)
+        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self.C = len(specs)
         self.W = cfg.wave_batch
         self.A = AGC_EXTRA
         self.hop = cfg.hop
         self.N = cfg.fft_size
-        self.window = torch.as_tensor(blackman_harris_7(self.N), device=self.device)
-        self._set_channels(specs)
+        with self._on_stream():
+            self.window = torch.as_tensor(blackman_harris_7(self.N), device=self.device)
+            self._set_channels(specs)
         self.any_ctcss = bool(any(s.ctcss > 0 for s in specs))
         self.any_afc = bool(any(s.afc for s in specs))
 
@@ -414,6 +421,12 @@ class Pipeline:
         self._prime_len = (self.A - 1) * self.hop + self.N
         self._block_need = self.W * self.hop  # new samples consumed per block
         self._block_len = block_input_len(self.W, self.hop, self.N)
+
+    def _on_stream(self):
+        """Context of every device operation of the pipeline: its compute
+        stream on the card, whatever the calling thread's current stream;
+        nothing on the CPU."""
+        return torch.cuda.stream(self._stream) if self._stream is not None else contextlib.nullcontext()
 
     def _set_channels(self, specs: list[ChannelSpec]) -> None:
         """Channel order, params, bins and taps.  Device slot j processes
@@ -532,7 +545,7 @@ class Pipeline:
         if self.device.type == "cpu":
             return outs, None, None
         ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(self.device))
+        ready.record(self._stream)
         host = {}
         with torch.cuda.stream(self._copy_stream):
             self._copy_stream.wait_event(ready)
@@ -547,14 +560,16 @@ class Pipeline:
         """Launch one k-block chained dispatch on the pending stream."""
         self._join_warm()
         n_in = (k * self.W - 1) * self.hop + self.N
-        xb = self._to_device(self._pending_slice(n_in))
-        self.state, outs = pipeline_chain(
-            xb, self.bins, self.window, self.params, self.state,
-            k_blocks=k, taps=self._taps, inv_perm=self._inv_perm, **self._chain_kwargs(),
-        )
+        with self._on_stream():
+            xb = self._to_device(self._pending_slice(n_in))
+            self.state, outs = pipeline_chain(
+                xb, self.bins, self.window, self.params, self.state,
+                k_blocks=k, taps=self._taps, inv_perm=self._inv_perm, **self._chain_kwargs(),
+            )
+            fetch = self._start_fetch(outs)
         self._pending_consume(k * self._block_need)
         self.blocks_processed += k
-        self._inflight.append((k, self._start_fetch(outs)))
+        self._inflight.append((k, fetch))
         if k > 1:
             self._warm_flush_path()
 
@@ -595,16 +610,17 @@ class Pipeline:
             kwargs["audio_fmt"] = fmt
         self._join_warm()
         dev = self.device
-        state = init_demod_state(self.C, torch.zeros((self.A, self.C), device=dev), torch.zeros((self.A, self.C, 2), device=dev))
         n_in = (k * self.W - 1) * self.hop + self.N
-        if kwargs["sample_fmt"] == "pairs":
-            xb = torch.zeros((n_in, 2), device=dev)
-        else:
-            xb = torch.zeros(2 * n_in, dtype=torch.int16 if kwargs["sample_fmt"] == "s16" else torch.uint8, device=dev)
-        pipeline_chain(xb, self.bins, self.window, self.params, state, k_blocks=k, taps=self._taps, inv_perm=self._inv_perm, **kwargs)
-        prime = torch.zeros((self._prime_len, 2), device=dev)
-        channelize_block(prime, self.bins, self.window, hop=self.hop, fft_size=self.N, n_frames=self.A,
-                         use_fft=self.cfg.channelizer == "fft", taps=self._taps)
+        with self._on_stream():
+            state = init_demod_state(self.C, torch.zeros((self.A, self.C), device=dev), torch.zeros((self.A, self.C, 2), device=dev))
+            if kwargs["sample_fmt"] == "pairs":
+                xb = torch.zeros((n_in, 2), device=dev)
+            else:
+                xb = torch.zeros(2 * n_in, dtype=torch.int16 if kwargs["sample_fmt"] == "s16" else torch.uint8, device=dev)
+            pipeline_chain(xb, self.bins, self.window, self.params, state, k_blocks=k, taps=self._taps, inv_perm=self._inv_perm, **kwargs)
+            prime = torch.zeros((self._prime_len, 2), device=dev)
+            channelize_block(prime, self.bins, self.window, hop=self.hop, fft_size=self.N, n_frames=self.A,
+                             use_fft=self.cfg.channelizer == "fft", taps=self._taps)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -751,11 +767,12 @@ class Pipeline:
             prime = self._pending_slice(self._prime_len)
             if self._ship != "pairs":
                 prime = self._decode(prime.tobytes())
-            mags, iqs = channelize_block(
-                self._to_device(prime), self.bins, self.window,
-                hop=self.hop, fft_size=self.N, n_frames=self.A, use_fft=self.cfg.channelizer == "fft", taps=self._taps,
-            )
-            self.state = init_demod_state(self.C, mags, iqs)
+            with self._on_stream():
+                mags, iqs = channelize_block(
+                    self._to_device(prime), self.bins, self.window,
+                    hop=self.hop, fft_size=self.N, n_frames=self.A, use_fft=self.cfg.channelizer == "fft", taps=self._taps,
+                )
+                self.state = init_demod_state(self.C, mags, iqs)
             self._pending_consume(self.A * self.hop)
             self._primed = True
 
@@ -786,12 +803,13 @@ class Pipeline:
             raise RuntimeError("pipeline not primed; nothing to checkpoint")
         if self._inflight:
             raise RuntimeError("in-flight chunks pending; iterate flush() before save_state")
-        flat = {f"state.{k}": v for k, v in interop.state_to_numpy(self.state).items()}
+        with self._on_stream():
+            flat = {f"state.{k}": v for k, v in interop.state_to_numpy(self.state).items()}
+            flat["bins"] = self.bins.cpu().numpy()  # device order
         flat["pending"] = self._pending if self._pending is not None else np.zeros((0, 2), np.float32)
         flat["ship"] = np.str_(self._ship or "")
         flat["tail_pending"] = self._tail_pending
         flat["tail_startup"] = np.bool_(self._tail_startup)
-        flat["bins"] = self.bins.cpu().numpy()  # device order
         flat["blocks_processed"] = np.int64(self.blocks_processed)
         np.savez(path, **flat)
 
@@ -799,11 +817,12 @@ class Pipeline:
         """Resume from :meth:`save_state` of either framework (same channel
         config and shapes)."""
         d = np.load(path)
-        self.state = interop.state_from_numpy({k[len("state.") :]: d[k] for k in d.files if k.startswith("state.")}, device=self.device)
+        with self._on_stream():
+            self.state = interop.state_from_numpy({k[len("state.") :]: d[k] for k in d.files if k.startswith("state.")}, device=self.device)
+            self._set_device_bins(d["bins"])
         self._pending = np.asarray(d["pending"])
         ship = str(d["ship"]) if "ship" in d else "pairs"
         self._ship = ship or None
-        self._set_device_bins(d["bins"])
         self.blocks_processed = int(d["blocks_processed"])
         if "tail_pending" in d:
             self._tail_pending = np.asarray(d["tail_pending"], np.float32).copy()
@@ -819,7 +838,8 @@ class Pipeline:
         """AFC / scan retune: move channels to new FFT bins (USER channel
         order); the matched-filter taps are rebuilt (bins change at 200 ms /
         2 s control cadence, not per block)."""
-        self._set_device_bins(np.asarray(bins, np.int32)[self._order])
+        with self._on_stream():
+            self._set_device_bins(np.asarray(bins, np.int32)[self._order])
 
     def retune(self, specs: list[ChannelSpec], center_freq: int | None = None) -> None:
         """Scan-mode retune: new channel frequencies and/or device center.
@@ -833,7 +853,8 @@ class Pipeline:
         self.specs = specs
         # the feature set may change with the new freq entries -> regroup
         # (safe: the carried state is dropped and re-primed below)
-        self._set_channels(specs)
+        with self._on_stream():
+            self._set_channels(specs)
         # drop buffered samples from the old tuning and re-prime; in-flight
         # chunks from the old tuning stay queued and drain in FIFO order
         self._pending = None

@@ -1,7 +1,9 @@
 """The nvcc-built kernels against their plain PyTorch versions, on the card:
 the demod kernel K1 and the chain-latency probe K2; the streaming Pipeline
 on the card (chunked dispatch with a copy stream equal to single-block
-dispatch, K1 once a block) and the FFT channelizer's precision.
+dispatch, K1 once a block) and the FFT channelizer's precision; the App
+from a libconfig file (K1 once a block, per-device demod threads equal to
+one thread bit for bit, no multi-GPU mesh).
 
 Needs an NVIDIA GPU and nvcc; skips without a card.  The file imports
 neither jax nor the JAX package, so it also runs on a machine that has
@@ -20,18 +22,20 @@ import pytest
 import torch
 
 from rtlsdr_airband_tpu_torch import interop
+from rtlsdr_airband_tpu_torch.app import App
 from rtlsdr_airband_tpu_torch.constants import AGC_EXTRA
 from rtlsdr_airband_tpu_torch.ops import demod_cuda
 from rtlsdr_airband_tpu_torch.ops.demod import demod_block
 from rtlsdr_airband_tpu_torch.ops.channelizer import block_input_len, channelize_fft
 from rtlsdr_airband_tpu_torch.ops.params import ChannelSpec, init_demod_state, make_channel_params
 from rtlsdr_airband_tpu_torch.ops.window import blackman_harris_7
+from rtlsdr_airband_tpu_torch.runtime.config import loads_config
 from rtlsdr_airband_tpu_torch.runtime.pipeline import Pipeline, PipelineConfig
 from rtlsdr_airband_tpu_torch.scripts import bench_chain_probe as probe
 from rtlsdr_airband_tpu_torch.utils.siggen import am_carrier_iq, complex_noise
 from torch_port_common import (
-    CENTER, FS, N, SPEC_KW, active_state, assert_bitwise, assert_channelizer_close, dft_at_bins, feed_all, spec_population,
-    to_u8,
+    CENTER, FS, N, SPEC_KW, active_state, assert_bitwise, assert_channelizer_close, dft_at_bins, drive_app, feed_all,
+    spec_population, to_u8,
 )
 
 
@@ -215,3 +219,113 @@ def test_channelize_fft_reaches_the_bar_on_card(cuda_device):
                            torch.from_numpy(window).to(cuda_device), hop=hop, fft_size=N, n_frames=W)
     assert m.device.type == "cuda"
     assert_channelizer_close(m.cpu(), iq.cpu(), dft_at_bins(x, bins, window, hop=hop, fft_size=N, n_frames=W), "cuFFT")
+
+
+def file_device(path, channels: str, centerfreq: str = "120.0") -> str:
+    """A libconfig ``file`` device block reading u8 at FS, unpaced."""
+    return (f'{{ type = "file"; filepath = "{path}"; sample_format = "u8"; sample_rate = {FS}; '
+            f"centerfreq = {centerfreq}; speedup_factor = 0.0; channels: ( {channels} ); }}")
+
+
+def population_channels(C: int, port: int) -> str:
+    """libconfig channels for spec_population(C), each with a udp_stream sink
+    to ``port``."""
+    out = []
+    for kw in spec_population(C):
+        opts = [f"freq = {kw['frequency']}", f'modulation = "{kw["modulation"]}"']
+        if "bandwidth" in kw:  # an int is Hz (a float would be MHz)
+            opts.append(f"bandwidth = {int(kw['bandwidth'])}")
+        for key, conf in (("notch", "notch"), ("ctcss", "ctcss"), ("squelch_threshold_dbfs", "squelch_threshold"),
+                          ("ampfactor", "ampfactor")):
+            if key in kw:
+                opts.append(f"{conf} = {float(kw[key])}")
+        opts.append(f'outputs: ( {{ type = "udp_stream"; dest_address = "127.0.0.1"; dest_port = {port}; }} )')
+        out.append("{ " + "; ".join(opts) + "; }")
+    return ", ".join(out)
+
+
+def population_u8(path, C: int, secs: float, seed: int = 3) -> None:
+    """AM carriers on channels 0, 1 and 4 of spec_population(C), gated off
+    for the middle third, over noise, as a u8 file centred on CENTER."""
+    n = int(FS * secs)
+    z = complex_noise(n, 0.01, seed)
+    gate = np.ones(n, np.float32)
+    gate[n // 3 : 2 * n // 3] = 0.0
+    for i in (0, 1, 4):
+        z += gate * am_carrier_iq(FS, spec_population(C)[i]["frequency"] - CENTER, n, carrier_ampl=0.3)
+    with open(path, "wb") as fh:
+        fh.write(to_u8(z))
+
+
+def _app_config(paths, C, extra=""):
+    devs = ", ".join(file_device(p, population_channels(C, 57400 + i)) for i, p in enumerate(paths))
+    return (f"fft_size = 512;\nwave_rate = 16000;\nblocks_per_dispatch = 4;\nactive_fetch_slots = 32;\n"
+            f'fetch_audio_fmt = "i8bf";\nsuppress_fade_tails = true;\nfetch_meta_per_chunk = true;\n{extra}devices: ( {devs} );\n')
+
+
+def _recording_app(text):
+    """An App on the card whose handled blocks are kept per device."""
+    app = App(loads_config(text))
+    blocks = {rt.stats.index: [] for rt in app.devices}
+    handle = app._handle_block
+
+    def record(rt, out):
+        blocks[rt.stats.index].append({k: np.array(v) for k, v in out.items()})
+        handle(rt, out)
+
+    app._handle_block = record
+    return app, blocks
+
+
+@pytest.mark.cuda
+def test_app_launches_k1_once_a_block(cuda_device, tmp_path):
+    """App from a libconfig file at C = 130 on the card: K1 launches equal
+    the blocks processed and handled, every block finite, squelch opens."""
+    iq = tmp_path / "iq.cu8"
+    population_u8(iq, 130, secs=1.6)
+    app, blocks = _recording_app(_app_config([iq], 130))
+    p = app.devices[0].pipeline
+    assert p.device.type == "cuda" and p.cfg.demod_backend == "cuda"
+    want = [ChannelSpec(**dict(k, has_iq_outputs=False)) for k in spec_population(130)]
+    assert [vars(x) for x in p.specs] == [vars(x) for x in want]
+    p.warm()
+    before = demod_cuda.LAUNCHES
+    drive_app(app)
+    outs = blocks[0]
+    assert demod_cuda.LAUNCHES - before == p.blocks_processed == len(outs) >= 10
+    assert all(o["audio"].shape == (2000, 130) and np.isfinite(o["audio"]).all() for o in outs)
+    assert max(int(o["active"].sum()) for o in outs) > 0
+    assert p.gather_overflow_count == 0
+
+
+@pytest.mark.cuda
+def test_app_multiple_demod_threads_equal_one_thread_on_card(cuda_device, tmp_path):
+    """Two devices with multiple_demod_threads: each device's pipeline is fed
+    on its own worker thread and flushed on the main thread (each Pipeline
+    runs on its own stream); every handled block equals the single-threaded
+    run's bit for bit."""
+    paths = [tmp_path / "a.cu8", tmp_path / "b.cu8"]
+    for i, path in enumerate(paths):
+        population_u8(path, 65, secs=1.6, seed=3 + i)
+    runs = {}
+    for mdt in ("false", "true"):
+        app, blocks = _recording_app(_app_config(paths, 65, f"multiple_demod_threads = {mdt};\n"))
+        drive_app(app)
+        assert all(rt.pipeline.blocks_processed == len(blocks[rt.stats.index]) >= 10 for rt in app.devices)
+        runs[mdt] = blocks
+    for di in (0, 1):
+        assert len(runs["true"][di]) == len(runs["false"][di])
+        for k, (a, b) in enumerate(zip(runs["false"][di], runs["true"][di])):
+            assert a.keys() == b.keys()
+            for key in a:
+                assert a[key].dtype == b[key].dtype and a[key].tobytes() == b[key].tobytes(), f"device {di} block {k} {key}"
+
+
+@pytest.mark.cuda
+def test_app_mesh_devices_raises_on_card(cuda_device, tmp_path):
+    """mesh_devices > 1 asks for a multi-GPU pipeline, which is not ported:
+    App raises rather than running on one card."""
+    iq = tmp_path / "iq.cu8"
+    population_u8(iq, 8, secs=0.3)
+    with pytest.raises(ValueError, match="multi-GPU"):
+        App(loads_config(_app_config([iq], 8, "mesh_devices = 2;\n")))

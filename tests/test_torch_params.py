@@ -2,6 +2,7 @@
 ``rtlsdr_airband_tpu_torch`` against the JAX package, plus the port's
 import boundary (it imports neither jax nor the JAX package)."""
 
+import ast
 import fnmatch
 import os
 import re
@@ -130,15 +131,64 @@ def test_package_data_ships_every_kernel_source():
         assert any(fnmatch.fnmatchcase(src, g) for g in globs), f"{src} matches none of {globs}"
 
 
+_PORT_FILES = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "tests/test_torch_cuda.py", "tests/torch_port_common.py")] + [
+    os.path.join(d, f) for d, _, fs in os.walk(os.path.join(ROOT, "rtlsdr_airband_tpu_torch")) for f in fs if f.endswith(".py")
+]
+
+
 def test_port_sources_import_nothing_of_jax():
     """The port, chip_smoke.py and the card-only tests (which run where there
     is no JAX) import neither jax nor the JAX package."""
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax\b|rtlsdr_airband_tpu(?!_torch)\b)")
-    files = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "tests/test_torch_cuda.py", "tests/torch_port_common.py")] + [
-        os.path.join(d, f) for d, _, fs in os.walk(os.path.join(ROOT, "rtlsdr_airband_tpu_torch")) for f in fs if f.endswith(".py")
-    ]
-    assert len(files) > 10
-    for path in files:
+    assert len(_PORT_FILES) > 10
+    for path in _PORT_FILES:
         with open(path) as fh:
             for i, line in enumerate(fh, 1):
                 assert not pat.search(line), f"{os.path.relpath(path, ROOT)}:{i}: {line.strip()}"
+
+
+# a module of the JAX package named in a string (importlib, __import__, an
+# entry point): "rtlsdr_airband_tpu" alone or followed by a dot
+_JAX_PACKAGE_NAME = re.compile(r"^rtlsdr_airband_tpu$|rtlsdr_airband_tpu\.|^jax$|^jax\.")
+
+
+@pytest.mark.parametrize("path", _PORT_FILES, ids=[os.path.relpath(p, ROOT) for p in _PORT_FILES])
+def test_port_sources_name_no_jax_module_in_a_string(path):
+    """No string literal of the port (docstrings included) names a module of
+    the JAX package or of jax, so no run-time import can reach them
+    (rtlsdr_airband_tpu/inputs/base.py imports its drivers by such a
+    string)."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and _JAX_PACKAGE_NAME.search(node.value):
+            raise AssertionError(f"{os.path.relpath(path, ROOT)}:{node.lineno}: {node.value[:120]!r}")
+
+
+def test_the_string_check_catches_the_drivers_import():
+    """The check above flags the JAX package's own driver import string."""
+    src = open(os.path.join(ROOT, "rtlsdr_airband_tpu", "inputs", "base.py")).read()
+    hits = [n for n in ast.walk(ast.parse(src)) if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and _JAX_PACKAGE_NAME.search(n.value)]
+    assert any(n.value == "rtlsdr_airband_tpu.inputs." for n in hits)
+
+
+def test_port_run_time_imports_pull_in_no_jax(tmp_path):
+    """The port's driver factory and config loader, called in a fresh
+    interpreter: a file input through input_new and every example through
+    loads_config leave neither jax nor the JAX package in sys.modules."""
+    iq = tmp_path / "iq.cu8"
+    iq.write_bytes(bytes(4096))
+    code = (
+        "import glob, sys\n"
+        "from rtlsdr_airband_tpu_torch.inputs.base import input_new\n"
+        "from rtlsdr_airband_tpu_torch.runtime.config import loads_config\n"
+        f"inp = input_new('file', filepath={str(iq)!r}, sample_rate=2560000, centerfreq=0, speedup_factor=0.0)\n"
+        "assert type(inp).__module__ == 'rtlsdr_airband_tpu_torch.inputs.filesrc', type(inp).__module__\n"
+        "for p in sorted(glob.glob('examples/*.conf')): loads_config(open(p).read())\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'rtlsdr_airband_tpu' or m.startswith('rtlsdr_airband_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

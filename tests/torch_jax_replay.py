@@ -28,8 +28,9 @@ class RecordedChannelizer:
     under ``jax.disable_jit()``: its chain's ``lax.scan`` then runs eagerly
     and the channelizer sees concrete arrays, while ``demod_block`` stays
     jitted (eagerly its W-step scan takes minutes).  The port's run then
-    gets each recorded output after its own channelizer input was found
-    equal, bit for bit, to the one JAX recorded.  The port's channelizers
+    gets each recorded output after its own channelizer input and bins were
+    found equal, bit for bit, to the ones JAX recorded (AFC and scan mode
+    move the bins between calls).  The port's channelizers
     are held against float64 on their own (tests/test_torch_channelizer.py).
     The port's demod is K1's host build (``demod_cuda.demod_block_host``),
     equal to the plain version bit for bit (tests/test_torch_demod_tiled.py).
@@ -57,14 +58,15 @@ class RecordedChannelizer:
     def _recorder(self, real):
         def record(x, bins, window, **kw):
             out = real(x, bins, window, **kw)
-            self.calls.append((np.asarray(x), np.asarray(out[0]), np.asarray(out[1])))
+            self.calls.append((np.asarray(x), np.asarray(bins), np.asarray(out[0]), np.asarray(out[1])))
             return out
 
         return record
 
     def _replay(self, x, bins, window, **kw):
-        want_x, mags, iq = self.calls[self.replayed]
+        want_x, want_bins, mags, iq = self.calls[self.replayed]
         np.testing.assert_array_equal(x.cpu().numpy(), want_x, err_msg=f"channelizer input, call {self.replayed}")
+        np.testing.assert_array_equal(bins.cpu().numpy(), want_bins, err_msg=f"channelizer bins, call {self.replayed}")
         self.replayed += 1
         return torch.from_numpy(mags.copy()), torch.from_numpy(iq.copy())
 

@@ -205,3 +205,37 @@ def assert_bitwise(want_out, got_out, label: str) -> None:
         a, b = want[k], got[k]
         assert a.dtype == b.dtype and a.shape == b.shape, f"{label}: state {k} {a.dtype}{a.shape} vs {b.dtype}{b.shape}"
         assert a.tobytes() == b.tobytes(), f"{label}: state {k} differs"
+
+
+def write_am_u8(path, secs=2.0, freq_off=400_000, wr=8000, tone=800.0, gate=None) -> None:
+    """An AM carrier at ``freq_off`` with a ``tone`` over noise, as a u8 file
+    (tests/test_app.py::write_iq, the same samples)."""
+    n = int(FS * secs)
+    audio = (0.9 * np.sin(2 * np.pi * tone * np.arange(int(wr * secs)) / wr)).astype(np.float32)
+    iq = am_carrier_iq(FS, freq_off, n, audio=audio, carrier_ampl=0.4, mod_index=0.8, audio_rate=wr)
+    if gate is not None:
+        g = np.zeros(n, np.float32)
+        g[int(n * gate[0]) : int(n * gate[1])] = 1.0
+        iq = iq * g
+    iq = iq + complex_noise(n, 0.005, seed=7)
+    with open(path, "wb") as fh:
+        fh.write(to_u8(iq))
+
+
+def drive_app(app, max_wall: float = 90.0):
+    """start(), _service_once() until every device is done (or ``max_wall``
+    seconds), stop() (tests/test_app.py::run_app)."""
+    import time
+
+    app.start()
+    t0 = time.time()
+    try:
+        while time.time() - t0 < max_wall:
+            worked = app._service_once()
+            if not any(rt.alive for rt in app.devices):
+                break
+            if not worked:
+                time.sleep(0.002)
+    finally:
+        app.stop()
+    return app
