@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Runs from the repository root and needs one CUDA device; it exits non-zero
-without one, and without the port's package beside it.  It imports nothing
-of JAX and nothing of the JAX package.  Phases, each fatal on failure:
+Runs from the repository root and needs one CUDA device (phase 9 uses more
+where they are present); it exits non-zero without one, and without the
+port's package beside it.  It imports nothing of JAX and nothing of the JAX
+package.  Phases, each fatal on failure:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds every kernel from csrc/ (one process per source); per
@@ -66,7 +67,24 @@ of JAX and nothing of the JAX package.  Phases, each fatal on failure:
    CLI: ``python3 -m rtlsdr_airband_tpu_torch -F -e -c <conf>`` on a small
    config with a file sink (exit 0, an audio file over 1000 bytes), and
    ``--check-config`` on every examples/*.conf;
-9. the kernels line, the JSON kernels line, the card line and the result.
+9. the mesh (``parallel/sharding.py``), at full width:
+   (1) the flagship block program through a 2x2 mesh of one card ([cuda:0] *
+       4, each cell on its own stream): the time-sharded channelizer with
+       its halo exchange, the reshard, K1 once per channel shard (4 launches
+       a block at 2048 channels), 8 blocks with the state threaded, held
+       against the single-device program bit for bit (or, should the card's
+       GEMMs round otherwise at W/T rows, H12, within the parity bars with
+       flags and int/bool state exact); the mesh's block ms beside the
+       single device's, K1 alone at 2048 channels per shard and its bound,
+       the halo exchange and the reshard timed, a profile;
+   (2) phase 7's stream at production settings through the same mesh: K1 4
+       launches a block, every key against the single-device Pipeline, D2H
+       bytes a block equal, the stream wall a block of both;
+   (3) with two or more GPUs: (1) over distinct GPUs, the phase-8 App with
+       mesh_devices = min(4, count) against the single-GPU App block for
+       block, and a 2-rank NCCL run of scripts/run_multihost.py on the
+       phase-8 file against a 1-rank run; with one GPU a line says why not;
+10. the kernels line, the JSON kernels line, the card line and the result.
 """
 
 from __future__ import annotations
@@ -1101,6 +1119,310 @@ def phase_cli(workdir: str) -> None:
         log(f"  {o.strip().splitlines()[-1]}")
 
 
+def out_diffs(a: dict, b: dict) -> dict:
+    """Per key of two block outputs: max |difference| (float) or mismatch
+    count (int/bool); bit for bit where every value is 0."""
+    import torch
+
+    d = {}
+    for k in a:
+        x, y = a[k], b[k]
+        if x.dtype.is_floating_point:
+            d[k] = 0.0 if torch.equal(x.view(torch.int32), y.view(torch.int32)) else float((x - y).abs().max().item())
+        else:
+            d[k] = int((x != y).sum().item())
+    return d
+
+
+def mesh_profile(run, card: str) -> tuple[float, int, float]:
+    """torch.profiler over one mesh run: (K1 device ms, K1 kernel launches,
+    copy device ms), the top rows logged."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    if not rows:
+        log("mesh profile: torch.profiler recorded no device time")
+        return float("nan"), 0, float("nan")
+    rows.sort(key=lambda r: -r[1])
+    k1 = [(ms, n) for key, ms, n in rows if "demod_kernel" in key]
+    copies = sum(ms for key, ms, _ in rows if key.startswith("Memcpy"))
+    log(f"mesh profile of {K_BLOCKS} blocks [{card}]: K1 {sum(m for m, _ in k1):.3f} ms in {sum(n for _, n in k1)} launches, "
+        f"copies {copies:.3f} ms; by kernel:")
+    for key, ms, n in rows[:10]:
+        log(f"  {ms:9.3f} ms  x{n:<4d} {key[:110]}")
+    return sum(m for m, _ in k1), sum(n for _, n in k1), copies
+
+
+def mesh_block_program(devices, card: str, timed: bool) -> dict:
+    """Phase 9 (1): the flagship block program through a mesh of
+    ``devices``, 8 distinct blocks with the state threaded, against the
+    single-device program on the same blocks."""
+    import torch
+
+    from rtlsdr_airband_tpu_torch.interop import state_to_numpy
+    from rtlsdr_airband_tpu_torch.models.flagship import build_flagship
+    from rtlsdr_airband_tpu_torch.ops import demod_cuda
+    from rtlsdr_airband_tpu_torch.parallel import sharding
+    from rtlsdr_airband_tpu_torch.runtime.pipeline import pipeline_block
+
+    device = torch.device(devices[0])
+    block, x, state0 = build_flagship(n_channels=C_FLAGSHIP, wave_rate=16000, device=device)
+    kw = block.block_kwargs
+    W, hop, N = kw["n_frames"], kw["hop"], kw["fft_size"]
+    rng = np.random.default_rng(7)
+    noise = torch.as_tensor(rng.normal(0, 0.01, (K_BLOCKS,) + tuple(x.shape)).astype(np.float32), device=device)
+    xs = [x + noise[k] for k in range(K_BLOCKS)]  # phase 5's K distinct blocks
+    mesh = sharding.make_pipeline_mesh(devices, time_shards=2 if len(devices) >= 4 else 1)
+    layout = sharding.channel_layout(mesh, C_FLAGSHIP)
+    cells = sharding.replicate(mesh, (block.bins, block.window, (block.taps_re, block.taps_im)))
+    bins, window, taps = ([c[i] for c in cells] for i in range(3))
+    params = sharding.shard_last(mesh, block.params)
+    st0 = sharding.shard_last(mesh, state0)
+
+    def run_mesh(outs=None, states=None):
+        st = st0
+        for xb in xs:
+            if states is not None:
+                states.append(st)
+            st, out = pipeline_block(sharding.split_block(mesh, xb, hop=hop, n_frames=W), bins, window, params, st,
+                                     taps=taps, inv_perm=block.inv_perm, mesh=mesh, **kw)
+            if outs is not None:
+                outs.append((st, out))
+        return st
+
+    def run_single(outs=None):
+        st = state0
+        for xb in xs:
+            st, out = block(xb, st)
+            if outs is not None:
+                outs.append((st, out))
+        return st
+
+    single, meshed, states_in = [], [], []
+    run_single(single)
+    demod_cuda.LAUNCHES = 0
+    run_mesh(meshed, states_in)
+    for d in set(mesh.cells):
+        torch.cuda.synchronize(d)
+    launches = demod_cuda.LAUNCHES
+    if launches != len(layout) * K_BLOCKS:
+        raise AssertionError(f"mesh: K1 launched {launches} times for {K_BLOCKS} blocks over {len(layout)} channel shards")
+    widths = sorted({sl.stop - sl.start for _, sl in layout})
+    worst, flips, int_bad, bitwise = {}, 0, 0, True
+    for k, ((st_s, out_s), (st_m, out_m)) in enumerate(zip(single, meshed)):
+        if not all(bool(torch.isfinite(out_m[key]).all()) for key in ("audio", "signal_level", "noise_level", "squelch_level")):
+            raise AssertionError(f"mesh block {k}: outputs not finite")
+        d = out_diffs(out_s, out_m)
+        sd = state_diffs(sharding.gather_last(mesh, st_m), st_s)
+        for key, v in list(d.items()) + [(f"state.{n}", v) for n, v in sd.items()]:
+            worst[key] = max(worst.get(key, 0), v)
+        flips += d["open_flags"]
+        int_bad += sum(v for v in sd.values() if isinstance(v, int)) + sum(v for k2, v in d.items() if isinstance(v, int))
+        a, b = state_to_numpy(sharding.gather_last(mesh, st_m)), state_to_numpy(st_s)
+        bitwise &= all(v == 0 for v in d.values()) and all(a[n].tobytes() == b[n].tobytes() for n in a)
+    floats = {k: v for k, v in worst.items() if isinstance(v, float) and v}
+    log(f"mesh {mesh.shape} over {[str(c) for c in mesh.cells]} [{card}]: {K_BLOCKS} blocks, K1 launches {launches} = "
+        f"{len(layout)} a block at {widths} channels; against one device: bit for bit {bitwise}"
+        + ("" if bitwise else f" (H12: flags differing {flips}, int/bool values differing {int_bad}, worst float {floats})"))
+    if not bitwise:
+        # H12: the card's GEMMs may round otherwise at M = W/T rows; then
+        # the ROADMAP parity bars hold, flags and int/bool state exact
+        bad = {k: v for k, v in worst.items() if (isinstance(v, int) and v) or (isinstance(v, float) and v > 1e-4)}
+        if bad:
+            raise AssertionError(f"mesh against one device beyond the parity bars: {bad}")
+    r = dict(launches=launches, bitwise=bitwise, widths=widths, shards=len(layout))
+    if not timed:
+        return r
+    mesh_ms = time_ms(run_mesh, reps=3) / K_BLOCKS
+    single_ms = time_ms(run_single, reps=3) / K_BLOCKS
+    halo = N - hop
+    body, tail = sharding.split_block(mesh, xs[0], hop=hop, n_frames=W)
+
+    def halo_once():
+        with mesh.scope():
+            mesh.transport.halo(mesh, [(body[1][:halo], mesh.time_cell(1), mesh.time_cell(0), (halo, 2), torch.float32)])
+
+    with mesh.scope():
+        rows = sharding.time_sharded_rows(mesh, body, tail, bins, window, hop=hop, fft_size=N, n_frames=W, taps=taps)
+
+    def reshard_once():
+        with mesh.scope():
+            sharding.reshard_rows(mesh, rows, layout, W)
+
+    halo_ms = time_ms(halo_once, reps=10) if mesh.shape["time"] > 1 else float("nan")
+    reshard_ms = time_ms(reshard_once, reps=10)
+    with mesh.scope():
+        shards = sharding.reshard_rows(mesh, rows, layout, W)
+    for d in set(mesh.cells):
+        torch.cuda.synchronize(d)
+    lib_k1 = k1_designs()[f"smem{demod_cuda.BLOCK_WIDTH}"]
+    shard_ms = []
+    for j, (cell, _) in enumerate(layout):
+        with torch.cuda.device(mesh.device(cell)):  # K1 alone, on the shard's own GPU
+            shard_ms.append(kernel_ms(lib_k1, params[j], states_in[0][j], *shards[j], reps=3)[0])
+    bound_ms, bound_by, how = demod_bound(params[0], states_in[0][0], shards[0][0])
+    k1_total, k1_n, copy_ms = mesh_profile(run_mesh, card)
+    log(f"mesh timing [{card}]: block {mesh_ms:.3f} ms through the mesh against {single_ms:.3f} ms on one device "
+        f"(x{mesh_ms / single_ms:.2f}); K1 alone at {widths[0]} channels, per shard (ms): "
+        f"{' '.join(f'{v:.4f}' for v in shard_ms)}, bound {bound_ms:.4f} ms ({bound_by}: {how}); profile: K1 "
+        f"{k1_total / max(1, k1_n):.4f} ms a launch over {k1_n} launches, copies {copy_ms / K_BLOCKS:.4f} ms a block; "
+        f"halo exchange {halo_ms:.4f} ms, reshard {reshard_ms:.4f} ms (CUDA events, one block)")
+    r.update(mesh_ms=mesh_ms, single_ms=single_ms, shard_ms=sum(shard_ms) / len(shard_ms), shard_bound_ms=bound_ms, halo_ms=halo_ms,
+             reshard_ms=reshard_ms, copy_ms=copy_ms / K_BLOCKS, k1_profile_ms=k1_total / max(1, k1_n))
+    return r
+
+
+def mesh_stream(device, card: str) -> dict:
+    """Phase 9 (2): phase 7's streaming scene and production settings
+    through a [card] * 4 mesh, against the single-device Pipeline."""
+    import torch
+
+    from rtlsdr_airband_tpu_torch.models.flagship import CENTER_FREQ, flagship_specs
+    from rtlsdr_airband_tpu_torch.ops import demod_cuda
+    from rtlsdr_airband_tpu_torch.parallel.sharding import make_pipeline_mesh
+    from rtlsdr_airband_tpu_torch.runtime.pipeline import Pipeline, PipelineConfig
+
+    specs = flagship_specs(C_FLAGSHIP)
+    raw = stream_bytes(specs, STREAM_BLOCKS, seed=11)
+    prod = dict(sample_rate=2_560_000, center_freq=CENTER_FREQ, fft_size=512, wave_rate=16000, sample_format="u8",
+                fullscale=127.5, chunk_blocks=8, async_depth=1, active_slots=STREAM_SLOTS, fetch_audio_fmt="i8bf",
+                suppress_fade_tails=True, fetch_meta_per_chunk=True)
+    mesh = make_pipeline_mesh([device] * 4)
+    runs = {}
+    for name, m in (("single", None), ("mesh", mesh)):
+        p = Pipeline(PipelineConfig(**prod, mesh=m), specs)
+        p.warm()
+        blocks = []
+        demod_cuda.LAUNCHES = 0
+        n, _ = stream(p, raw, lambda o: blocks.append({k: np.array(v) for k, v in o.items()}))
+        launches = demod_cuda.LAUNCHES
+        walls = []
+        for _ in range(2):
+            q = Pipeline(PipelineConfig(**prod, mesh=m), specs)
+            q.warm()
+            n_t, wall = stream(q, raw)
+            walls.append(wall / n_t * 1e3)
+        runs[name] = dict(blocks=blocks, launches=launches, n=n, d2h=p.fetched_bytes / p.blocks_processed, wall_ms=min(walls),
+                          overflows=p.gather_overflow_count)
+    s, m = runs["single"], runs["mesh"]
+    if not (m["n"] == s["n"] == STREAM_BLOCKS and m["launches"] == 4 * STREAM_BLOCKS and s["launches"] == STREAM_BLOCKS):
+        raise AssertionError(f"mesh stream: {m['n']} / {s['n']} blocks, K1 launches {m['launches']} / {s['launches']}")
+    same = all(a.keys() == b.keys() and all(a[k].tobytes() == b[k].tobytes() for k in a) for a, b in zip(s["blocks"], m["blocks"]))
+    audio_diff = max(float(np.abs(a["audio"] - b["audio"]).max()) for a, b in zip(s["blocks"], m["blocks"]))
+    active_same = all(np.array_equal(a["active"], b["active"]) for a, b in zip(s["blocks"], m["blocks"]))
+    log(f"mesh stream [{card}]: {m['n']} blocks at production settings over {mesh.shape} on one card, K1 launches "
+        f"{m['launches']} (4 a block); every key against one device bit for bit {same} (audio max |diff| {audio_diff:.3e}, "
+        f"active equal {active_same}); D2H {m['d2h']:.0f} B a block (one device {s['d2h']:.0f}); overflows {m['overflows']} "
+        f"({s['overflows']}); wall a block {m['wall_ms']:.3f} ms (one device {s['wall_ms']:.3f} ms)")
+    if m["d2h"] != s["d2h"] or not active_same or (not same and audio_diff > 1e-4):
+        raise AssertionError("mesh stream: D2H bytes, active or audio beyond the parity bars against one device")
+    return dict(launches=m["launches"], same=same, wall_ms=m["wall_ms"], single_wall_ms=s["wall_ms"], d2h=m["d2h"])
+
+
+def app_digests(conf_text: str, workdir: str, name: str) -> tuple[list, int]:
+    """An App run to the input's end: per handled block (audio digest,
+    active digest), and the K1 launches."""
+    import hashlib
+    import os
+
+    from rtlsdr_airband_tpu_torch.app import App
+    from rtlsdr_airband_tpu_torch.ops import demod_cuda
+    from rtlsdr_airband_tpu_torch.runtime.config import load_config
+
+    path = os.path.join(workdir, f"{name}.conf")
+    with open(path, "w") as fh:
+        fh.write(conf_text)
+    app = App(load_config(path))
+    app.devices[0].pipeline.warm()
+    got = []
+    handle = app._handle_block
+
+    def record(r, out):
+        got.append((hashlib.sha1(np.ascontiguousarray(out["audio"]).tobytes()).hexdigest(),
+                    hashlib.sha1(np.asarray(out["active"]).tobytes()).hexdigest()))
+        handle(r, out)
+
+    app._handle_block = record
+    demod_cuda.LAUNCHES = 0
+    app.start()
+    try:
+        t0 = time.perf_counter()
+        while any(r.alive for r in app.devices) and time.perf_counter() - t0 < 300:
+            if not app._service_once():
+                time.sleep(0.002)
+    finally:
+        app.stop()
+    return got, demod_cuda.LAUNCHES
+
+
+def mesh_multi_gpu(card: str, workdir: str) -> dict:
+    """Phase 9 (3), with two or more GPUs: the block program over distinct
+    GPUs, the phase-8 App with mesh_devices = min(4, count) against the
+    single-GPU App, and a 2-rank NCCL run of the multi-process runner on the
+    phase-8 file against a 1-rank run."""
+    import glob
+    import os
+
+    import torch
+
+    from rtlsdr_airband_tpu_torch.models.flagship import CENTER_FREQ, flagship_specs
+
+    n = min(4, torch.cuda.device_count())
+    r = mesh_block_program([torch.device("cuda", i) for i in range(n)], card, timed=False)
+    conf = open(os.path.join(workdir, "app.conf")).read()
+    single, l1 = app_digests(conf, workdir, "app_single")
+    meshed, ln = app_digests(f"mesh_devices = {n};\n" + conf, workdir, "app_mesh")
+    same = single == meshed
+    log(f"mesh App over {n} GPUs [{card}]: {len(meshed)} blocks, K1 launches {ln} (single GPU {l1}); audio and active "
+        f"equal the single-GPU App's block for block: {same}")
+    if not same or len(single) == 0:
+        raise AssertionError("mesh App differs from the single-GPU App")
+    # the runner on the phase-8 file, 64 channels around the hot ones (it writes a WAV a channel)
+    fs, wr = 2_560_000, 16000
+    freqs = [sp.frequency for sp in flagship_specs(C_FLAGSHIP, CENTER_FREQ, fs)]
+    hot = [int(i) for i in np.linspace(0, C_FLAGSHIP - 1, APP_HOT).astype(int)]
+    keep = sorted({min(C_FLAGSHIP - 1, max(0, h + d)) for h in hot for d in range(-8, 8)})
+    sub = os.path.join(workdir, "multihost.conf")
+    with open(sub, "w") as fh:
+        fh.write(app_config(os.path.join(workdir, "app_scene.cu8"), [freqs[i] for i in keep], -1, center=CENTER_FREQ, fs=fs,
+                            wave_rate=wr))
+    import socket
+
+    def runner(nproc, outdir):
+        with socket.socket() as s_:
+            s_.bind(("127.0.0.1", 0))
+            port = s_.getsockname()[1]
+        cmd = [sys.executable, "-m", "rtlsdr_airband_tpu_torch.scripts.run_multihost", "--coordinator", f"127.0.0.1:{port}",
+               "--nproc", str(nproc), "-c", sub, "--device", "cuda", "--chunk", "4"]
+        procs = [subprocess.Popen(cmd + ["--pid", str(i), "--outdir", os.path.join(workdir, f"{outdir}{i}")],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for i in range(nproc)]
+        outs = []
+        try:
+            outs = [pr.communicate(timeout=300)[0] for pr in procs]
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+        for pr, o in zip(procs, outs):
+            if pr.returncode != 0:
+                raise AssertionError(f"run_multihost ({nproc} rank(s)): exit {pr.returncode}\n{o[-3000:]}")
+        return {os.path.basename(f): open(f, "rb").read() for i in range(nproc) for f in glob.glob(os.path.join(workdir, f"{outdir}{i}", "*.wav"))}
+
+    t0 = time.perf_counter()
+    one, two = runner(1, "mh1_"), runner(2, "mh2_")
+    same_wav = one.keys() == two.keys() and all(one[k] == two[k] for k in one)
+    log(f"run_multihost [{card}]: 2 NCCL ranks wrote {len(two)} WAVs, equal byte for byte to 1 rank's {len(one)}: "
+        f"{same_wav} ({time.perf_counter() - t0:.1f} s)")
+    if not same_wav or len(one) != len(keep):
+        raise AssertionError("run_multihost: the 2-rank WAVs differ from the 1-rank run's")
+    return dict(r, app_launches=ln)
+
+
 def main() -> int:
     try:
         import torch
@@ -1144,20 +1466,35 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         a = phase_app(card, workdir)
         phase_cli(workdir)
+        mb = mesh_block_program([device] * 4, card, timed=True)
+        ms = mesh_stream(device, card)
+        if torch.cuda.device_count() >= 2:
+            mg = mesh_multi_gpu(card, workdir)
+        else:
+            mg = dict(launches=0, app_launches=0)
+            log(f"mesh over distinct GPUs, the App with mesh_devices > 1 and the 2-rank NCCL run of run_multihost: not run, "
+                f"this machine has {torch.cuda.device_count()} GPU and NCCL refuses two ranks on one GPU (App refuses to "
+                f"repeat a GPU in its mesh)")
+    mesh_launches = mb["launches"] + ms["launches"] + mg["launches"] + mg["app_launches"]
 
     log(f"kernels: K1 demod (csrc/demod.cu) launches {t['launches']} on the main path, {s['launches']} on the "
         f"streaming path and {a['launches']} in the App, parity ok "
         f"(audio {err['audio']:.3e}, iq {err['iq']:.3e}, flags exact, int/bool state exact, bit for bit: {err['bitwise']}); "
         f"K2 chain_probe (csrc/chain_probe.cu) launches {p['launches']} equal bit for bit in chain1, chain2, chain1w "
-        f"(max |diff| {p['err']}), latency bound {p['latency_bound_ms']:.6f} ms")
+        f"(max |diff| {p['err']}), latency bound {p['latency_bound_ms']:.6f} ms; K1 on the mesh: {mesh_launches} launches "
+        f"({mb['shards']} a block at {mb['widths']} channels), {mb['shard_ms']:.4f} ms at {mb['widths'][0]} channels (mean of the shards)")
     log(json.dumps({"kernels": [{
         "name": "demod",
         "route": "cuda",
         "source": "rtlsdr_airband_tpu_torch/csrc/demod.cu",
         "replaces": "rtlsdr_airband_tpu/ops/demod_pallas.py:848",
-        "launches": t["launches"] + s["launches"] + a["launches"],
+        "launches": t["launches"] + s["launches"] + a["launches"] + mesh_launches,
+        "mesh_launches": mesh_launches,
         "max_abs_err": err["audio"],
         "ms": t["k1_ms"],
+        "mesh_shard_ms": mb["shard_ms"],
+        "mesh_shard_channels": mb["widths"][0],
+        "mesh_shard_bound_ms": mb["shard_bound_ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],

@@ -12,8 +12,9 @@ mixers, stats, scan controllers and AFC trackers.
 ``App(cfg, device=...)`` chooses where every pipeline runs: ``"cuda"`` (the
 default; without a card ``Pipeline`` raises) or ``"cpu"`` for the plain
 PyTorch versions, which the tests choose explicitly.  There is no automatic
-fallback.  One device's channels run on one GPU: ``mesh_devices > 1``
-raises, since multi-GPU is not ported yet.
+fallback.  ``mesh_devices = N > 1`` spreads each device's channels over a
+('time', 'chan') mesh of the first N distinct GPUs (``N`` CPU cells with
+``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from .constants import AGC_EXTRA
 from .inputs.base import Input, InputState, input_new
@@ -35,6 +37,7 @@ from .outputs.icecast import IcecastOutput
 from .outputs.pulse import make_pulse_output
 from .outputs.stats import DeviceStats, FreqStats, MixerStats, StatsWriter
 from .outputs.udp import UdpStreamOutput
+from .parallel.sharding import make_pipeline_mesh
 from .runtime.config import DeviceConfig, GlobalConfig, OutputConfig, pipeline_backend
 from .runtime.control import AFCTracker, ScanController
 from .runtime.mixer import Mixer
@@ -241,11 +244,14 @@ class App:
         self.do_exit = False
         self._last_output_check = 0.0
 
-        # the JAX package spreads one device's channel population over
-        # several chips (a ('time', 'chan') mesh); the port does not yet
+        # multi-device mesh, shared by every device's pipeline (reference
+        # analog: multiple_demod_threads spreads SDR devices over CPU
+        # threads, rtl_airband.cpp:1052-1090; here one device's channel
+        # population spans GPUs through a ('time', 'chan') mesh)
+        self.mesh = None
         if cfg.mesh_devices > 1:
-            raise ValueError(f"mesh_devices = {cfg.mesh_devices}: multi-GPU pipelines are not ported yet; "
-                             "set mesh_devices to 0 or 1 (one GPU a device)")
+            self.mesh = make_pipeline_mesh(self._mesh_devices(cfg.mesh_devices), time_shards=cfg.mesh_time_shards or None)
+            log(LOG_NOTICE, f"multi-device mesh: {dict(self.mesh.shape)} over {cfg.mesh_devices} {torch.device(device).type} device(s)")
         self.demod_backend = pipeline_backend(cfg.demod_backend)
 
         # mixers first (reference: parse_mixers before parse_devices)
@@ -284,6 +290,17 @@ class App:
         self._demod_workers: list[DemodWorker] = []
 
     # ------------------------------------------------------------------ build
+
+    def _mesh_devices(self, n: int) -> list:
+        """The mesh's cells: the first ``n`` distinct GPUs on the card (a
+        ValueError when fewer are present; a GPU is never repeated), or
+        ``n`` CPU cells, the CPU tests' counterpart of virtual devices."""
+        if torch.device(self.device).type == "cpu":
+            return ["cpu"] * n
+        have = torch.cuda.device_count()
+        if have < n:
+            raise ValueError(f"mesh_devices = {n} but only {have} GPU(s) present")
+        return [torch.device("cuda", i) for i in range(n)]
 
     def _build_device(self, di: int, d: DeviceConfig, fm_quadri: bool) -> DeviceRuntime:
         scan_mode = d.mode == "scan"
@@ -343,6 +360,7 @@ class App:
             fetch_meta_per_chunk=self.cfg.fetch_meta_per_chunk,
             demod_backend=self.demod_backend,
             device=self.device,
+            mesh=self.mesh,
         )
         pipeline = Pipeline(pcfg, specs)
 

@@ -195,11 +195,19 @@ def test_app_defaults_to_the_card_and_raises_without_one(tmp_path):
 
 
 def test_mesh_devices_raise(tmp_path):
-    """mesh_devices > 1 asks for a multi-GPU pipeline, not ported yet: App
-    raises instead of running on one device."""
-    with pytest.raises(ValueError, match="multi-GPU"):
-        App(_one_device(tmp_path, "mesh_devices = 2;\n"), device="cpu")
-    assert len(App(_one_device(tmp_path, "mesh_devices = 1;\n"), device="cpu").devices) == 1
+    """mesh_devices = N > 1 on the card takes the first N distinct GPUs and
+    raises when fewer are present (here none: the default device is the
+    card); it never repeats a GPU.  On the CPU it takes N CPU cells, and
+    mesh_devices = 1 runs no mesh."""
+    have = torch.cuda.device_count()
+    want = max(2, have + 1)
+    with pytest.raises(ValueError, match=f"mesh_devices = {want} but only {have} GPU"):
+        App(_one_device(tmp_path, f"mesh_devices = {want};\n"))
+    app = App(_one_device(tmp_path, "mesh_devices = 2;\n"), device="cpu")
+    assert app.mesh.shape == {"time": 1, "chan": 2} and app.mesh.cells == [torch.device("cpu")] * 2
+    assert app.devices[0].pipeline.mesh is not None
+    one = App(_one_device(tmp_path, "mesh_devices = 1;\n"), device="cpu")
+    assert one.mesh is None and len(one.devices) == 1 and one.devices[0].pipeline.mesh is None
 
 
 @pytest.mark.parametrize("value, backend", [("auto", "cuda"), ("pallas", "cuda"), ("cuda", "cuda"), ("xla", "plain"), ("plain", "plain")])

@@ -323,9 +323,79 @@ def test_app_multiple_demod_threads_equal_one_thread_on_card(cuda_device, tmp_pa
 
 @pytest.mark.cuda
 def test_app_mesh_devices_raises_on_card(cuda_device, tmp_path):
-    """mesh_devices > 1 asks for a multi-GPU pipeline, which is not ported:
-    App raises rather than running on one card."""
+    """mesh_devices beyond the distinct GPUs present: App raises rather than
+    repeating a GPU in its mesh."""
     iq = tmp_path / "iq.cu8"
     population_u8(iq, 8, secs=0.3)
-    with pytest.raises(ValueError, match="multi-GPU"):
-        App(loads_config(_app_config([iq], 8, "mesh_devices = 2;\n")))
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match=f"mesh_devices = {n} but only {n - 1} GPU"):
+        App(loads_config(_app_config([iq], 8, f"mesh_devices = {n};\n")))
+
+
+def _mesh_runs(devices, C=130):
+    """The chained mesh Pipeline on ``devices`` (chunk 4, one chunk in
+    flight, flags fetched) and the single-device one (chunk 1), on one u8
+    stream: (mesh pipeline, its blocks, K1 launches a block, reference
+    blocks)."""
+    from rtlsdr_airband_tpu_torch.parallel.sharding import make_pipeline_mesh
+
+    specs = [ChannelSpec(**k) for k in spec_population(C)]
+    wave_rate = 8 * 256
+    raw = _card_stream(specs, wave_rate, n_blocks=8)
+    base = dict(sample_rate=FS, center_freq=CENTER, wave_rate=wave_rate, sample_format="u8", fullscale=127.5, fetch_open_flags=True)
+    ref = feed_all(Pipeline(PipelineConfig(**base), specs), raw, 200_000)
+    p = Pipeline(PipelineConfig(**base, chunk_blocks=4, async_depth=1, mesh=make_pipeline_mesh(devices)), specs)
+    before = demod_cuda.LAUNCHES
+    got = feed_all(p, raw, 200_000)
+    return p, got, (demod_cuda.LAUNCHES - before) / max(1, p.blocks_processed), ref
+
+
+def _assert_blocks_equal(ref, got):
+    assert len(ref) == len(got) >= 7 and any(o["active"].any() for o in ref)
+    for i, (a, b) in enumerate(zip(ref, got)):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes(), f"block {i} {k}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [128, 130])
+def test_mesh_pipeline_on_one_card_equals_single(cuda_device, C):
+    """A 2x2 mesh of one card ([cuda:0] * 4, each cell on its own stream),
+    K1 launched once a channel shard a block.  C = 128: every yielded key
+    bit for bit as the single-device Pipeline's.  C = 130, padded to 132:
+    the matched filter's GEMM is 132 columns wide on the mesh and 130 on one
+    device, and cuBLAS rounds the two otherwise (ROADMAP H12), so the
+    parity bars hold: audio within 1e-4; IQ and the levels, which scale
+    with the carrier (IQ reaches tens here, where 1e-4 is tens of ulps),
+    within 1e-4 of max(1, |value|), as the Goertzel accumulators are held;
+    flags, active and the int counters exact."""
+    p, got, per_block, ref = _mesh_runs([torch.device("cuda", 0)] * 4, C)
+    assert p.C_dev == -(-C // 4) * 4 and p.mesh.shape == {"time": 2, "chan": 2} and per_block == 4
+    assert all(s.noise_floor.device.type == "cuda" for s in p.state)
+    if C % 4 == 0:
+        _assert_blocks_equal(ref, got)
+        return
+    assert len(ref) == len(got) >= 7 and any(o["active"].any() for o in ref)
+    for i, (a, b) in enumerate(zip(ref, got)):
+        assert a.keys() == b.keys()
+        for k in a:
+            if a[k].dtype.kind == "f":
+                scale = 1.0 if k == "audio" else np.maximum(1.0, np.abs(a[k]))
+                err = (np.abs(a[k] - b[k]) / scale).max()
+                assert err <= 1e-4, f"block {i} {k}: {err:.3e}"
+            else:
+                assert np.array_equal(a[k], b[k]), f"block {i} {k}"
+
+
+@pytest.mark.cuda
+def test_mesh_pipeline_over_distinct_gpus_equals_single(cuda_device):
+    """The mesh over two or more distinct GPUs (the shards' copies cross
+    devices), C = 128 (no pad, see the test above): bit for bit as one
+    device."""
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        pytest.skip("needs two or more GPUs")
+    p, got, per_block, ref = _mesh_runs([torch.device("cuda", i) for i in range(n)], C=128)
+    assert per_block == n and {s.noise_floor.device.index for s in p.state} == set(range(n))
+    _assert_blocks_equal(ref, got)

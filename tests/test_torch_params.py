@@ -107,7 +107,10 @@ _PORT_MODULES = [
 
 def test_port_import_pulls_in_no_jax():
     """The test process already holds jax (conftest.py): import the port in a
-    fresh interpreter and look at what it loaded."""
+    fresh interpreter and look at what it loaded; every module of the port
+    is imported, the multi-device ones among them."""
+    assert {"rtlsdr_airband_tpu_torch.parallel.sharding", "rtlsdr_airband_tpu_torch.parallel.multihost",
+            "rtlsdr_airband_tpu_torch.scripts.run_multihost"} <= set(_PORT_MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {_PORT_MODULES!r}: importlib.import_module(m)\n"
@@ -131,7 +134,8 @@ def test_package_data_ships_every_kernel_source():
         assert any(fnmatch.fnmatchcase(src, g) for g in globs), f"{src} matches none of {globs}"
 
 
-_PORT_FILES = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "tests/test_torch_cuda.py", "tests/torch_port_common.py")] + [
+_PORT_FILES = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "tests/test_torch_cuda.py", "tests/torch_port_common.py",
+                                                 "tests/torch_multihost_worker.py")] + [
     os.path.join(d, f) for d, _, fs in os.walk(os.path.join(ROOT, "rtlsdr_airband_tpu_torch")) for f in fs if f.endswith(".py")
 ]
 
@@ -141,6 +145,8 @@ def test_port_sources_import_nothing_of_jax():
     is no JAX) import neither jax nor the JAX package."""
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax\b|rtlsdr_airband_tpu(?!_torch)\b)")
     assert len(_PORT_FILES) > 10
+    port = os.path.join(ROOT, "rtlsdr_airband_tpu_torch")
+    assert {os.path.join(port, f) for f in ("parallel/sharding.py", "parallel/multihost.py", "scripts/run_multihost.py")} <= set(_PORT_FILES)
     for path in _PORT_FILES:
         with open(path) as fh:
             for i, line in enumerate(fh, 1):
