@@ -84,7 +84,25 @@ package.  Phases, each fatal on failure:
        mesh_devices = min(4, count) against the single-GPU App block for
        block, and a 2-rank NCCL run of scripts/run_multihost.py on the
        phase-8 file against a 1-rank run; with one GPU a line says why not;
-10. the kernels line, the JSON kernels line, the card line and the result.
+10. the drivers (``rtlsdr_airband_tpu_torch/scripts/`` and ``entry.py``), each
+    through its main() in this process with K1's launch counter at 0 just
+    before it, its JSON line printed, a failure fatal:
+    (1) bench.py at 8192 channels, K = 16, 3 reps (block_ms beside phase 5's);
+    (2) bench_scaling --channels 512,2048,8192,16384 (block_ms, K1 alone a
+        block by CUDA events);
+    (3) e2e_snr with K1 and with the plain version on the same scene:
+        squelch gating identical to the refmodel, worst SNR >= 80 dB, K1's
+        audio equal to the plain version's bit for bit;
+    (4) squelch_trace --synth: the traced plain run's audio and open flags
+        equal to K1's on the same channelizer output, bit for bit;
+    (5) entry(): fn(*example_args) once, equal bit for bit to phase 5's
+        block program on the same (un-noised) input and state;
+    (6) bench_app at 8192 channels over 8 s of air, unpaced, phase 8's
+        settings;
+    (7) soak at 2048 channels paced at real time for SOAK_MINUTES (default
+        1 here): its RSS, thread, fd and allocator samples; a failed check
+        fails the phase;
+11. the kernels line, the JSON kernels line, the card line and the result.
 """
 
 from __future__ import annotations
@@ -119,6 +137,8 @@ APP_CHUNK = 8
 APP_HOT = 4  # carriers; each opens ~80-150 channels at 8192 (scripts/bench_app.py)
 APP_SLOTS = 1024
 APP_UDP_BASE = 20000  # channel i streams to 127.0.0.1:APP_UDP_BASE + i
+SWEEP_COUNTS = (512, 2048, 8192, 16384)  # phase 10's channel sweep
+SOAK_CHANNELS = 2048
 
 
 def log(msg: str) -> None:
@@ -353,28 +373,13 @@ def k1_designs() -> dict:
 
 
 def kernel_ms(launcher, params, state, mags, iqs, reps: int, with_ctcss: bool = True):
-    """K1 alone: CUDA events right around ``launcher(lib, args)``, so the
-    wrapper's checks, allocations and fade assembly fall outside.  Min over
-    ``reps`` after one warm-up, and the last run's outputs.  Not counted in
-    LAUNCHES."""
-    import torch
+    """K1 alone: CUDA events right around ``launcher(lib, args)``, min over
+    ``reps`` after a warm-up, and the last run's outputs; not counted in
+    LAUNCHES (``scripts/bench_scaling.py::kernel_ms``, which its channel
+    sweep uses too)."""
+    from rtlsdr_airband_tpu_torch.scripts.bench_scaling import kernel_ms as k1_alone_ms
 
-    from rtlsdr_airband_tpu_torch.ops import demod_cuda
-
-    lib = demod_cuda.cuda_library()
-    times = []
-
-    def launch(args):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        launcher(lib, args)
-        end.record()
-        times.append((start, end))
-
-    for _ in range(reps + 1):
-        out = demod_cuda.run_with(launch, lib, params, state, mags, iqs, fm_quadri=False, with_ctcss=with_ctcss, with_iq=False)
-    torch.cuda.synchronize()
-    return min(s.elapsed_time(e) for s, e in times[1:]), out
+    return k1_alone_ms(launcher, params, state, mags, iqs, reps, with_ctcss)
 
 
 def same_bits(a, b) -> bool:
@@ -471,6 +476,7 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
         bound_by=bound_by,
         issue_bound_ms=issue_ms,
         launches=launches,
+        flagship=(block, x, state0),
     )
     for (d, ct), v in per.items():
         log(f"K1 {d:<8s} {'with' if ct else 'without'} the CTCSS banks, per main-path block (ms): "
@@ -860,24 +866,14 @@ def phase_stream(device, card: str) -> dict:
 
 
 def app_scene(path: str, freqs: list[int], hot: list[int], total: int, *, center: int, fs: int) -> list[float]:
-    """The App phase's input as scripts/bench_app.py::build_scene writes it:
+    """The App phase's input, written by ``scripts/bench_app.py::build_scene``:
     noise, and one AM carrier a hot channel, keyed on after a quarter of the
     file (an always-on carrier would become the noise floor), its tone at the
     full IQ rate, the carriers' sum inside the u8 range.  Returns the tones."""
-    from rtlsdr_airband_tpu_torch.utils.siggen import complex_noise
+    from rtlsdr_airband_tpu_torch.scripts.bench_app import build_scene
 
-    z = complex_noise(total, 0.02, seed=11)
-    t = np.arange(total, dtype=np.float64) / fs
-    ampl = min(0.4, 0.5 / np.sqrt(max(1, len(hot))))
-    gate = (np.arange(total) >= int(total * 0.25)).astype(np.float32)
-    tones = [500.0 + 130.0 * k for k in range(len(hot))]
-    for k, ci in enumerate(hot):
-        env = 1.0 + 0.5 * 0.7 * np.sin(2 * np.pi * tones[k] * t)
-        z += (ampl * env * np.exp(2j * np.pi * (freqs[ci] - center) * t)).astype(np.complex64) * gate
-    iq = np.empty(total * 2, np.float32)
-    iq[0::2], iq[1::2] = z.real, z.imag
-    np.clip(np.round(iq * 127.5 + 127.5), 0, 255).astype(np.uint8).tofile(path)
-    return tones
+    build_scene(path, freqs, hot, center, fs, total, 16000)
+    return [500.0 + 130.0 * k for k in range(len(hot))]
 
 
 def app_config(iq_path: str, freqs: list[int], ctcss_channel: int, *, center: int, fs: int, wave_rate: int) -> str:
@@ -943,28 +939,18 @@ def tone_peak(audio: np.ndarray, rate: int) -> float:
     return float(np.fft.rfftfreq(seg.size, 1 / rate)[np.argmax(spec[5:]) + 5])
 
 
-def raise_fd_limit(need: int) -> None:
-    """Soft RLIMIT_NOFILE up to the hard limit; fails if even that is short
-    of ``need`` (one UDP socket a channel: the population is never cut)."""
-    import resource
-
-    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
-    if hard != resource.RLIM_INFINITY and hard < need:
-        raise AssertionError(f"RLIMIT_NOFILE hard limit {hard} < {need} (one UDP socket a channel + 256)")
-    resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
-    log(f"app: RLIMIT_NOFILE soft {soft} -> {resource.getrlimit(resource.RLIMIT_NOFILE)[0]}, hard {hard}")
-
-
 def phase_app(card: str, workdir: str) -> dict:
     """The port's App at full width on the card (phase 8 of the module
     docstring)."""
     import os
+    import resource
 
     import torch
 
     from rtlsdr_airband_tpu_torch.app import App
     from rtlsdr_airband_tpu_torch.constants import AGC_EXTRA
     from rtlsdr_airband_tpu_torch.inputs.base import InputState
+    from rtlsdr_airband_tpu_torch.scripts.common import raise_fd_limit
     from rtlsdr_airband_tpu_torch.models.flagship import CENTER_FREQ, flagship_specs
     from rtlsdr_airband_tpu_torch.ops import demod_cuda
     from rtlsdr_airband_tpu_torch.runtime.config import load_config
@@ -972,6 +958,7 @@ def phase_app(card: str, workdir: str) -> dict:
     fs, wave_rate, N = 2_560_000, 16000, 512
     hop, W = fs // wave_rate, wave_rate // 8
     raise_fd_limit(C_FLAGSHIP + 256)
+    log(f"app: RLIMIT_NOFILE {resource.getrlimit(resource.RLIMIT_NOFILE)}")
     freqs = [s.frequency for s in flagship_specs(C_FLAGSHIP, CENTER_FREQ, fs)]
     hot = [int(i) for i in np.linspace(0, C_FLAGSHIP - 1, APP_HOT).astype(int)]
     n_chunks = max(1, round(APP_SECONDS / 0.125 / APP_CHUNK))
@@ -1423,6 +1410,159 @@ def mesh_multi_gpu(card: str, workdir: str) -> dict:
     return dict(r, app_launches=ln)
 
 
+def run_driver(name: str, main_fn, env: dict | None = None) -> tuple[list[dict], int]:
+    """One driver's ``main()`` in this process with ``env`` set for the call
+    and K1's launch counter at 0 just before it: its standard output echoed
+    (each line prefixed with the driver's name), a non-zero exit fatal.
+    Returns the JSON objects it printed and the K1 launches it made."""
+    import contextlib
+    import io
+    import os
+
+    from rtlsdr_airband_tpu_torch.ops import demod_cuda
+
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    demod_cuda.LAUNCHES = 0
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main_fn()
+    finally:
+        launches = demod_cuda.LAUNCHES
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"{name}: {line}")
+    log(f"{name}: exit {rc}, K1 launches {launches}, {time.perf_counter() - t0:.1f} s")
+    if rc != 0:
+        raise AssertionError(f"{name}: exit {rc}")
+    return [json.loads(x) for x in lines if x.startswith("{")], launches
+
+
+def phase_drivers(device, card: str, t: dict, workdir: str) -> dict:
+    """Phase 10: each driver of the port at full width through its main(),
+    in this process, on the card."""
+    import os
+
+    import torch
+
+    from rtlsdr_airband_tpu_torch import entry
+    from rtlsdr_airband_tpu_torch.ops import demod_cuda
+    from rtlsdr_airband_tpu_torch.scripts import bench, bench_app, bench_scaling, e2e_snr, soak, squelch_trace
+
+    launches = {}
+    # (1) bench.py: the flagship, K = 16 blocks, 3 reps, wall / K
+    (b,), launches["bench"] = run_driver("bench", bench.main, dict(BENCH_CHANNELS=str(C_FLAGSHIP), BENCH_BLOCKS="16", BENCH_REPS="3"))
+    if b["detail"]["demod_backend"] != "cuda" or launches["bench"] != 16 * 4:
+        raise AssertionError(f"bench: backend {b['detail']['demod_backend']}, K1 launches {launches['bench']} (expected 64)")
+    log(f"bench [{card}]: block_ms {b['detail']['block_ms']:.4f} (host clock, wall / K of 16 blocks) beside phase 5's "
+        f"{t['block_ms']:.4f} (CUDA events, 8 blocks); {b['value']:.1f} channel-Msps, realtime factor {b['detail']['realtime_factor']:.2f}")
+
+    # (2) the channel sweep: block_ms and K1 alone a point
+    counts = list(SWEEP_COUNTS)
+    sweep, launches["bench_scaling"] = run_driver("bench_scaling", lambda: bench_scaling.main(["--channels", ",".join(map(str, counts))]))
+    if [p["n_channels"] for p in sweep] != counts or not all(p["k1_ms"] > 0 and p["backend"] == "cuda" for p in sweep):
+        raise AssertionError(f"bench_scaling: points {[p['n_channels'] for p in sweep]}")
+    for p in sweep:
+        log(f"sweep [{card}]: C={p['n_channels']} block_ms {p['block_ms']:.4f} K1 {p['k1_ms']:.4f} ms (wrapper {p['demod_ms']:.4f}) "
+            f"channel-Msps {p['channel_msps']:.1f} realtime {p['realtime_factor']:.2f}")
+
+    # (3) e2e_snr with K1 and with the plain version, on the same scene
+    audio = {}
+    demod_audio = e2e_snr.demod_audio
+
+    def keep(mags, iqs, backend, dev):
+        audio[backend] = demod_audio(mags, iqs, backend, dev)
+        return audio[backend]
+
+    e2e_snr.demod_audio = keep
+    try:
+        (e_k1,), launches["e2e_snr"] = run_driver("e2e_snr", lambda: e2e_snr.main(["--backend", "cuda"]))
+        (e_plain,), plain_launches = run_driver("e2e_snr plain", lambda: e2e_snr.main(["--backend", "plain"]))
+    finally:
+        e2e_snr.demod_audio = demod_audio
+    for e in (e_k1, e_plain):
+        worst = e["worst_snr_db"]
+        if not e["squelch_gating_identical"] or not (worst == "inf" or worst >= 80.0):
+            raise AssertionError(f"e2e_snr {e['backend']}: gating identical {e['squelch_gating_identical']}, worst {worst} dB")
+    if audio["cuda"].tobytes() != audio["plain"].tobytes() or plain_launches or not launches["e2e_snr"]:
+        raise AssertionError(f"e2e_snr: K1's audio is not the plain version's bit for bit "
+                             f"(max |diff| {np.abs(audio['cuda'] - audio['plain']).max():.3e}), launches {launches['e2e_snr']} / {plain_launches}")
+    log(f"e2e_snr [{card}]: K1 and plain: worst SNR {e_k1['worst_snr_db']} / {e_plain['worst_snr_db']} dB, gating identical to "
+        f"the refmodel, K1's audio equal to the plain version's bit for bit over {e_k1['samples_compared']} samples")
+
+    # (4) squelch_trace --synth: the traced plain demod on the card, then K1
+    # on the same channelizer outputs (comparison launches, not counted)
+    npz = os.path.join(workdir, "trace.npz")
+    secs = 1.0
+    _, launches["squelch_trace"] = run_driver("squelch_trace", lambda: squelch_trace.main(["--synth", "--seconds", str(secs), npz]))
+    tr = np.load(npz)
+    params, st, blocks = squelch_trace.channelized(squelch_trace.synth_scene(2_560_000, 400_000.0, secs, 8000), freq=120.4e6,
+                                                   center=120.0e6, fs=2_560_000, modulation="am", device=device)
+    before = demod_cuda.LAUNCHES
+    k1_audio, k1_open = [], []
+    for mags, iqs in blocks:
+        st, a, _iq, o = demod_cuda.demod_block_cuda(params, st, mags, iqs)
+        k1_audio.append(a[:, 0].cpu().numpy())
+        k1_open.append(o[:, 0].cpu().numpy())
+    demod_cuda.LAUNCHES = before
+    k1_audio, k1_open = np.concatenate(k1_audio), np.concatenate(k1_open)
+    if k1_audio.tobytes() != tr["audio"].tobytes() or not np.array_equal(k1_open, tr["open"]) or not tr["open"].any():
+        raise AssertionError(f"squelch_trace: the traced plain run differs from K1 (audio max |diff| "
+                             f"{np.abs(k1_audio - tr['audio']).max():.3e}, open flags differing {int((k1_open != tr['open']).sum())})")
+    log(f"squelch_trace [{card}]: {tr['cur'].size} samples, {len(tr.files)} series, open {int(tr['open'].sum())} samples; the "
+        f"traced plain audio and open flags equal K1's bit for bit")
+
+    # (5) entry(): fn(*example_args) once against phase 5's block program on
+    # its un-noised input and initial state (phase 5's blocks add noise)
+    fn, (x, state) = entry.entry()
+    demod_cuda.LAUNCHES = 0
+    st_e, out_e = fn(x, state)
+    torch.cuda.synchronize()
+    launches["entry"] = demod_cuda.LAUNCHES
+    block5, x5, state5 = t["flagship"]
+    st_5, out_5 = block5(x5, state5)
+    if x.cpu().numpy().tobytes() != x5.cpu().numpy().tobytes() or launches["entry"] != 1:
+        raise AssertionError(f"entry: the example input is not phase 5's, or K1 launched {launches['entry']} times")
+    if not same_bits((st_e, out_e["audio"]), (st_5, out_5["audio"])) or any(v for v in out_diffs(out_5, out_e).values()):
+        raise AssertionError(f"entry: fn(*example_args) differs from phase 5's first block: {out_diffs(out_5, out_e)}")
+    log(f"entry [{card}]: fn(*example_args) at {x.shape[0]} samples x {C_FLAGSHIP} channels, K1 launches 1; audio, every output "
+        f"and the state equal phase 5's block program on the same input bit for bit")
+
+    # (6) bench_app at 8192 channels over 8 s of air, unpaced (phase 8's settings)
+    env = dict(BENCH_APP_CHANNELS=str(C_FLAGSHIP), BENCH_APP_SECONDS="8", BENCH_APP_HOT=str(APP_HOT), BENCH_APP_BLOCKS_PER_DISPATCH=str(APP_CHUNK),
+               BENCH_APP_ACTIVE_SLOTS=str(APP_SLOTS), BENCH_APP_FMT="i8bf", BENCH_APP_SUPPRESS="1", BENCH_APP_METAPC="1")
+    (ba,), launches["bench_app"] = run_driver("bench_app", bench_app.main, env)
+    d = ba["detail"]
+    if d["blocks"] != d["blocks_expected"] or d["gather_overflows"] or launches["bench_app"] != d["blocks"] + APP_CHUNK:
+        raise AssertionError(f"bench_app: blocks {d['blocks']} of {d['blocks_expected']}, overflows {d['gather_overflows']}, "
+                             f"K1 launches {launches['bench_app']}")
+    log(f"bench_app [{card}]: {ba['value']:.3f} ms a block, realtime factor {ba['vs_baseline']:.2f}, {d['channels_opened']} channels "
+        f"opened, D2H {d['d2h_bytes_per_block']:.0f} B a block")
+
+    # (7) soak at SOAK_CHANNELS, paced at real time
+    env = dict(SOAK_CHANNELS=str(SOAK_CHANNELS), SOAK_MINUTES=os.environ.get("SOAK_MINUTES", "1"), SOAK_SAMPLE_S="5", SOAK_SCENE_SECONDS="10")
+    soak_json = os.path.join(workdir, "soak.json")
+    (sk,), launches["soak"] = run_driver("soak", lambda: soak.main(["--out", soak_json]), env)
+    with open(soak_json) as fh:
+        samples = json.load(fh)["samples"]
+    for sm in samples:
+        log(f"soak sample: t {sm['t']:.1f} s rss {sm['rss_mb']:.1f} MB threads {sm['threads']} fds {sm['fds']} blocks {sm['blocks']} "
+            f"cuda reserved {sm['cuda_reserved_mb']} MB allocated {sm['cuda_allocated_mb']} MB")
+    log(f"soak [{card}]: {sk['minutes']:.2f} min, {sk['blocks_handled']} blocks, RSS {sk['rss_mb_start']:.1f} -> {sk['rss_mb_end']:.1f} MB, "
+        f"threads {sk['thread_drift']:+d}, fds {sk['fd_drift']:+d}, checks {sk['checks']}")
+    if not launches["soak"]:
+        raise AssertionError("soak: K1 was not launched")
+    log(f"drivers: K1 launches {launches} ({sum(launches.values())} in all)")
+    return dict(launches=sum(launches.values()), per_driver=launches, bench_block_ms=b["detail"]["block_ms"], sweep=sweep)
+
+
 def main() -> int:
     try:
         import torch
@@ -1475,6 +1615,7 @@ def main() -> int:
             log(f"mesh over distinct GPUs, the App with mesh_devices > 1 and the 2-rank NCCL run of run_multihost: not run, "
                 f"this machine has {torch.cuda.device_count()} GPU and NCCL refuses two ranks on one GPU (App refuses to "
                 f"repeat a GPU in its mesh)")
+        dr = phase_drivers(device, card, t, workdir)
     mesh_launches = mb["launches"] + ms["launches"] + mg["launches"] + mg["app_launches"]
 
     log(f"kernels: K1 demod (csrc/demod.cu) launches {t['launches']} on the main path, {s['launches']} on the "
@@ -1482,14 +1623,17 @@ def main() -> int:
         f"(audio {err['audio']:.3e}, iq {err['iq']:.3e}, flags exact, int/bool state exact, bit for bit: {err['bitwise']}); "
         f"K2 chain_probe (csrc/chain_probe.cu) launches {p['launches']} equal bit for bit in chain1, chain2, chain1w "
         f"(max |diff| {p['err']}), latency bound {p['latency_bound_ms']:.6f} ms; K1 on the mesh: {mesh_launches} launches "
-        f"({mb['shards']} a block at {mb['widths']} channels), {mb['shard_ms']:.4f} ms at {mb['widths'][0]} channels (mean of the shards)")
+        f"({mb['shards']} a block at {mb['widths']} channels), {mb['shard_ms']:.4f} ms at {mb['widths'][0]} channels (mean of the shards); "
+        f"K1 in the drivers: {dr['launches']} launches")
     log(json.dumps({"kernels": [{
         "name": "demod",
         "route": "cuda",
         "source": "rtlsdr_airband_tpu_torch/csrc/demod.cu",
         "replaces": "rtlsdr_airband_tpu/ops/demod_pallas.py:848",
-        "launches": t["launches"] + s["launches"] + a["launches"] + mesh_launches,
+        "launches": t["launches"] + s["launches"] + a["launches"] + mesh_launches + dr["launches"],
         "mesh_launches": mesh_launches,
+        "driver_launches": dr["launches"],
+        "sweep_k1_ms": {str(p["n_channels"]): p["k1_ms"] for p in dr["sweep"]},
         "max_abs_err": err["audio"],
         "ms": t["k1_ms"],
         "mesh_shard_ms": mb["shard_ms"],

@@ -524,10 +524,16 @@ def demod_block(
     *,
     fm_quadri: bool = False,
     with_ctcss: bool = True,
+    trace: bool = False,
 ):
     """Process one block of W samples for all channels (plain version).
 
     Returns (new_state, audio [W, C], iq_out [W, C, 2] f32, open_flags [W, C] bool).
+    With ``trace=True`` a fifth return holds the per-sample squelch
+    internals, each [W, C]: ``cur``, ``nxt``, ``nf`` (noise floor),
+    ``pre_capped``, ``agc``, ``delay`` (state after the sample) and
+    ``waveout`` (the loop's output before the fade and tail assembly).
+    Tracing changes none of the other returns.
     """
     W, C = mags.shape
     A = AGC_EXTRA
@@ -539,13 +545,18 @@ def demod_block(
     iq_stream = torch.cat([state.iq_tail, iqs[: W - A]], dim=0)
 
     st = state
-    outs = []
+    outs, traced = [], []
     for n in range(W):
         st, out = _scan_step(params, st, mags[n], iq_stream[n, :, 0], iq_stream[n, :, 1], fm_quadri, with_ctcss)
         outs.append(out)
+        if trace:
+            traced.append((st.cur, st.nxt, st.noise_floor, st.pre_capped, st.agc, st.delay))
     waveout, fade, open_now, iq_r, iq_i = (torch.stack(o) for o in zip(*outs))
 
     audio, new_tail = apply_fade_and_tail(state.waveout_tail, waveout, fade)
     iq_out = torch.stack([iq_r, iq_i], dim=-1)
     st = st._replace(iq_tail=iqs[W - A :].clone(), waveout_tail=new_tail)
+    if trace:
+        tr = dict(zip(("cur", "nxt", "nf", "pre_capped", "agc", "delay"), (torch.stack(o) for o in zip(*traced))))
+        return st, audio, iq_out, open_now, dict(tr, waveout=waveout)
     return st, audio, iq_out, open_now

@@ -171,6 +171,7 @@ def demod_block_cuda(
     with_ctcss: bool = True,
     with_iq: bool = True,
     block_width: int = BLOCK_WIDTH,
+    trace: bool = False,
 ):
     """Drop-in replacement for :func:`ops.demod.demod_block`.
 
@@ -178,8 +179,12 @@ def demod_block_cuda(
     with_iq=False skips the per-sample IQ-tap stores (use when no channel has
     IQ outputs); iq_out is then zeros.  CUDA tensors launch the kernel with
     ``block_width`` channels a block (one of ``BLOCK_WIDTHS``); CPU tensors
-    take the plain version.
+    take the plain version.  The kernel has no trace output: ``trace=True``
+    raises on any device (trace mode is the plain version's, as the JAX
+    package traces through its XLA scan only).
     """
+    if trace:
+        raise ValueError("demod_block_cuda: K1 has no trace mode; call ops.demod.demod_block(..., trace=True)")
     _check_width(block_width)
     if mags.device.type == "cpu":
         st, audio, iq_out, open_now = demod_block(params, state, mags, iqs, fm_quadri=fm_quadri, with_ctcss=with_ctcss)

@@ -33,7 +33,6 @@ import ctypes
 import functools
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -41,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .common import card_line
 
 W = 2000  # loop trips (= audio samples per block)
 L = 40  # dependent links per chain per trip
@@ -52,15 +52,6 @@ LAUNCHES = 0  # kernel launches by chain_probe; the plain version never counts
 
 CHAINS = {"chain1": 1, "chain1w": 1, "chain2": 2}  # kind -> independent chains a thread
 KERNEL_LINKS = (4, 40)  # the kernel's compiled chain lengths: the tests' and the script's L
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi prints them."""
-    r = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return r.stdout.strip().splitlines()[0]
 
 
 def chain_probe_plain(x: torch.Tensor, kind: str, w_trips: int, links: int = L) -> torch.Tensor:

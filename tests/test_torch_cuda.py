@@ -3,7 +3,8 @@ the demod kernel K1 and the chain-latency probe K2; the streaming Pipeline
 on the card (chunked dispatch with a copy stream equal to single-block
 dispatch, K1 once a block) and the FFT channelizer's precision; the App
 from a libconfig file (K1 once a block, per-device demod threads equal to
-one thread bit for bit, no multi-GPU mesh).
+one thread bit for bit, no multi-GPU mesh); K1 refusing trace mode, which
+the plain version has; scripts/bench.py's line on the card.
 
 Needs an NVIDIA GPU and nvcc; skips without a card.  The file imports
 neither jax nor the JAX package, so it also runs on a machine that has
@@ -121,6 +122,46 @@ def test_launcher_rejects_cpu_state_with_cuda_data(cuda_device):
     with pytest.raises(ValueError, match="cpu"):
         demod_cuda.demod_block_cuda(params, st, m, q)
     assert demod_cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_k1_refuses_to_trace_on_card(cuda_device):
+    """K1 has no trace mode: asked for one, the wrapper raises before any
+    launch; the plain version traces on the card and leaves its other
+    outputs bit for bit K1's."""
+    specs = [ChannelSpec(**k) for k in SPEC_KW]
+    params = make_channel_params(specs, wave_rate=16000, sample_rate=FS, center_freq=CENTER, fft_size=N, device=cuda_device)
+    rng = np.random.default_rng(8)
+    st = active_state(params, len(specs), rng, cuda_device)
+    m = torch.from_numpy(np.abs(rng.normal(0, 1.0, (150, len(specs))) + 3.0).astype(np.float32)).to(cuda_device)
+    q = torch.from_numpy(rng.normal(0, 0.5, (150, len(specs), 2)).astype(np.float32)).to(cuda_device)
+    before = demod_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="no trace mode"):
+        demod_cuda.demod_block_cuda(params, st, m, q, trace=True)
+    assert demod_cuda.LAUNCHES == before
+    traced = demod_block(params, st, m, q, trace=True)
+    assert traced[4]["cur"].shape == (150, len(specs)) and traced[4]["cur"].device.type == "cuda"
+    assert_bitwise(demod_cuda.demod_block_cuda(params, st, m, q), traced[:4], "traced plain against K1")
+
+
+@pytest.mark.cuda
+def test_bench_prints_its_line_on_card(cuda_device, monkeypatch, capsys):
+    """scripts/bench.py at 256 channels on the card: K1 once a block, the JSON
+    line with the card's name and power limit."""
+    import json
+
+    from rtlsdr_airband_tpu_torch.scripts import bench
+
+    for k, v in (("BENCH_CHANNELS", "256"), ("BENCH_BLOCKS", "4"), ("BENCH_REPS", "2")):
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("BENCH_DEVICE", raising=False)
+    before = demod_cuda.LAUNCHES
+    assert bench.main() == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert demod_cuda.LAUNCHES - before == 4 * 3  # warm-up and two reps of K = 4
+    d = line["detail"]
+    assert d["demod_backend"] == "cuda" and d["n_channels"] == 256 and d["block_ms"] > 0 and line["unit"] == "channel-Msps/GPU"
+    assert line["device"] == torch.cuda.get_device_name(0) and line["power_limit"].endswith("W")
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 """The port's copies of the JAX package's host modules (logutil, io/wav,
 inputs/, outputs/, runtime/{libconfig,config,mixer,control,economy},
-native), on the CPU.
+refmodel/, utils/siggen, native), on the CPU.
 
 - Drift: each copy's code equals its JAX module's once the few lines the
   port changes are mapped back (comments and docstrings aside: the copies
@@ -59,6 +59,8 @@ COPIES = {
     "inputs.mirisdr": ([], ()),
     **{f"outputs.{m}": ([], ()) for m in ("dispatch", "encoders", "filemgr", "icecast", "pulse", "pulse_async", "stats", "udp")},
     "outputs": ([], ()),
+    **{f"refmodel.{m}": ([], ()) for m in ("channel_ref", "squelch_ref", "ctcss_ref", "filters_ref")},
+    "utils.siggen": ([], ()),
 }
 
 

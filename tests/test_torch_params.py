@@ -97,6 +97,12 @@ def test_interop_round_trip_is_lossless():
         assert torch.equal(getattr(tp, name), getattr(ref, name)), name
 
 
+# the drivers and what they alone import: entry points, refmodel, siggen
+_DRIVERS = {f"rtlsdr_airband_tpu_torch.{m}" for m in (
+    "entry", "refmodel.channel_ref", "refmodel.squelch_ref", "refmodel.ctcss_ref", "refmodel.filters_ref", "utils.siggen",
+    *(f"scripts.{s}" for s in ("common", "bench", "bench_app", "soak", "bench_scaling", "e2e_snr", "squelch_trace", "debug_golden")),
+)}
+
 _PORT_MODULES = [
     "rtlsdr_airband_tpu_torch." + os.path.relpath(os.path.join(d, f), os.path.join(ROOT, "rtlsdr_airband_tpu_torch"))[:-3].replace(os.sep, ".")
     for d, _, files in os.walk(os.path.join(ROOT, "rtlsdr_airband_tpu_torch"))
@@ -110,7 +116,7 @@ def test_port_import_pulls_in_no_jax():
     fresh interpreter and look at what it loaded; every module of the port
     is imported, the multi-device ones among them."""
     assert {"rtlsdr_airband_tpu_torch.parallel.sharding", "rtlsdr_airband_tpu_torch.parallel.multihost",
-            "rtlsdr_airband_tpu_torch.scripts.run_multihost"} <= set(_PORT_MODULES)
+            "rtlsdr_airband_tpu_torch.scripts.run_multihost"} | _DRIVERS <= set(_PORT_MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {_PORT_MODULES!r}: importlib.import_module(m)\n"
@@ -147,6 +153,7 @@ def test_port_sources_import_nothing_of_jax():
     assert len(_PORT_FILES) > 10
     port = os.path.join(ROOT, "rtlsdr_airband_tpu_torch")
     assert {os.path.join(port, f) for f in ("parallel/sharding.py", "parallel/multihost.py", "scripts/run_multihost.py")} <= set(_PORT_FILES)
+    assert {os.path.join(port, *m.split(".")[1:]) + ".py" for m in _DRIVERS} <= set(_PORT_FILES)
     for path in _PORT_FILES:
         with open(path) as fh:
             for i, line in enumerate(fh, 1):
