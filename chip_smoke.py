@@ -8,10 +8,11 @@ port's package beside it.  It imports nothing of JAX and nothing of the JAX
 package.  Phases, each fatal on failure:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc builds every kernel from csrc/ (one process per source); per
-   kernel its registers and spills (ptxas), K1's dynamic shared memory at
-   each block width, its SASS memory instructions and the instructions of
-   its step loop (cuobjdump);
+2. build: nvcc builds every kernel from csrc/ (one process per source: K1's
+   default schedule, K1's other schedules, K2); per kernel its registers and
+   spills (ptxas), K1's dynamic shared memory at each block width and in the
+   pair block, its SASS memory instructions and the instructions of its step
+   loop (cuobjdump), for every schedule;
 3. parity: on the 8192-channel active scene (build_flagship_stream, W = 2000,
    4 blocks: squelch opens and closes on the carriers, CTCSS banks decide)
    the demod kernel K1, at its default block width, against its plain
@@ -23,8 +24,9 @@ package.  Phases, each fatal on failure:
    through the FlagshipBlock with the launch counters at 0, then timings
    with CUDA events on the same blocks and states (warm-up, min over reps):
    the block, the channelizer GEMMs, K1 alone on each block at both block
-   widths and the first (device-memory) design of K1, each with and without
-   the CTCSS banks, all equal bit for bit; the plain demod on the last
+   widths, the first (device-memory) design of K1 and K1's schedules (unroll
+   2 and 4, pair at unroll 1, 2 and 4), each with and without the CTCSS
+   banks, all equal bit for bit; the plain demod on the last
    block; K1's bytes bound and issue bound; a torch.profiler view of the K
    blocks by kernel;
 6. chain probe K2: the probe's own entry point (bench_chain_probe.main, its
@@ -102,7 +104,20 @@ package.  Phases, each fatal on failure:
     (7) soak at 2048 channels paced at real time for SOAK_MINUTES (default
         1 here): its RSS, thread, fd and allocator samples; a failed check
         fails the phase;
-11. the kernels line, the JSON kernels line, the card line and the result.
+11. K1's schedules (``demod_block_cuda(unroll=, pair=)``, csrc/demod_sched.cu):
+    (a) on phase 3's scene (8192 channels, W = 2000, CTCSS banks on, 4
+        blocks) unroll 2, unroll 4, pair, pair at unroll 2 and pair at
+        unroll 4 against the plain version and against the default schedule:
+        audio, IQ, flags and every state leaf bit for bit;
+    (b) the streaming flagship (phase 7's population and u8 scene, 4 blocks,
+        dense float32, chunk 4) with RTLSDR_DEMOD_PAIR=1 against the same run
+        without it, every key bit for bit, and the schedule counter showing
+        that pair ran once a block;
+    (c) the three drivers through their main(): bench_pair at 8192 and 512
+        channels, bench_unroll at 512 and 8192, bench_bf16 at 8192 (float32
+        must clear its 80 dB gate; the other precisions are evidence);
+12. the kernels line, the JSON kernels line (K1's schedules in K1's entry),
+    the card line and the result.
 """
 
 from __future__ import annotations
@@ -139,6 +154,9 @@ APP_SLOTS = 1024
 APP_UDP_BASE = 20000  # channel i streams to 127.0.0.1:APP_UDP_BASE + i
 SWEEP_COUNTS = (512, 2048, 8192, 16384)  # phase 10's channel sweep
 SOAK_CHANNELS = 2048
+SCHEDULES = ((2, False), (4, False), (1, True), (2, True), (4, True))  # K1's, besides the default (unroll, pair)
+SCHEDULE_COUNTS = (512, C_FLAGSHIP)  # phase 11's driver channel counts
+PAIR_STREAM_BLOCKS = 4
 
 
 def log(msg: str) -> None:
@@ -252,27 +270,59 @@ def state_diffs(a_state, b_state) -> dict:
     return out
 
 
-def phase_k1_build(path) -> int | None:
+def k1_schedule_of(fn: str) -> str | None:
+    """The schedule name (``demod_cuda.schedule_name``) of a K1 kernel by its
+    mangled name; the default at block width 32 gets "_bw32"."""
+    import re
+
+    m = re.search(r"demod_kernelILi(\d+)ELi(\d+)EE", fn)
+    if m:
+        return f"single_u{m.group(2)}" + ("" if m.group(1) == "64" else f"_bw{m.group(1)}")
+    m = re.search(r"demod_pair_kernelILi(\d+)EE", fn)
+    return f"pair_u{m.group(1)}" if m else None
+
+
+def phase_k1_build(built) -> tuple[int | None, dict]:
     """K1's instantiations as built: dynamic shared memory a block, SASS
     memory instructions (LDS/STS shared, LDG/STG device, LD/ST generic,
-    LDGSTS the cp.async copies) and the instructions of one step's loop body.
-    Returns that count for the default block width (None if not counted)."""
+    LDGSTS the cp.async copies) and the instructions of one step's loop body;
+    per schedule its registers and spill bytes (ptxas).  Returns the step
+    loop's count for the default schedule (None if not counted) and
+    {schedule: registers, spill_bytes, sass_instructions, step_loop}."""
+    import re
+
     from rtlsdr_airband_tpu_torch.ops import demod_cuda
 
     lib = demod_cuda.cuda_library()
     for w in demod_cuda.BLOCK_WIDTHS:
         log(f"K1 block width {w}: {demod_cuda.smem_bytes(lib, w)} bytes of dynamic shared memory a block")
-    counts = {}
-    for fn, ins in sass_listing(path).items():
-        ops = {op: sum(1 for _, o, _ in ins if o == op) for op in ("LDS", "STS", "LDG", "STG", "LD", "ST", "LDGSTS")}
-        counts[fn] = step_loop_instructions(ins)
-        log(f"sass {fn}: {len(ins)} instructions, memory {ops}, step loop body {counts[fn]}")
-    default = [n for fn, n in counts.items() if "demod_kernel" in fn and f"ILi{demod_cuda.BLOCK_WIDTH}E" in fn]
-    return default[0] if default else None
+    log(f"K1 pair block (2 x {demod_cuda.PAIR_TILE} channels): {demod_cuda.pair_smem_bytes(demod_cuda.schedule_library())} "
+        f"bytes of dynamic shared memory a block")
+    info = {}
+    for source in ("demod.cu", "demod_sched.cu"):
+        ptxas = ptxas_summary(built[source].log)
+        for fn, ins in sass_listing(built[source].path).items():
+            ops = {op: sum(1 for _, o, _ in ins if o == op) for op in ("LDS", "STS", "LDG", "STG", "LD", "ST", "LDGSTS")}
+            loop = step_loop_instructions(ins)
+            log(f"sass {fn}: {len(ins)} instructions, memory {ops}, step loop body {loop}")
+            name = k1_schedule_of(fn)
+            if name is None:
+                continue
+            text = " ".join(ptxas.get(fn, []))
+            regs = re.search(r"Used (\d+) registers", text)
+            spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", text)]
+            info[name] = dict(registers=int(regs.group(1)) if regs else None, spill_bytes=sum(spills),
+                              sass_instructions=len(ins), step_loop_instructions=loop)
+    for name, v in sorted(info.items()):
+        log(f"K1 schedule {name}: {v['registers']} registers, {v['spill_bytes']} bytes spilled, {v['sass_instructions']} SASS "
+            f"instructions, step loop body {v['step_loop_instructions']}")
+    return info.get("single_u1", {}).get("step_loop_instructions"), info
 
 
-def phase_parity(device) -> dict:
-    """K1 against the plain version on the 8192-channel active scene."""
+def phase_parity(device) -> tuple[dict, dict]:
+    """K1 against the plain version on the 8192-channel active scene.
+    Returns the errors and the scene (params, and per block the state in,
+    the inputs and both versions' outputs) for phase 11."""
     import torch
 
     from rtlsdr_airband_tpu_torch.models.flagship import build_flagship_stream
@@ -285,6 +335,7 @@ def phase_parity(device) -> dict:
     params = block.params
     ks = ps = state
     err = {"audio": 0.0, "iq": 0.0, "flags_mismatch": 0, "bitwise": True}
+    scene = dict(params=params, blocks=[])
     for k, x in enumerate(x_blocks):
         mags, iqs = channelize_matmul(x, block.bins, block.window, hop=kw["hop"], fft_size=kw["fft_size"], n_frames=kw["n_frames"], taps=(block.taps_re, block.taps_im))
         t0 = time.perf_counter()
@@ -304,6 +355,7 @@ def phase_parity(device) -> dict:
         if not err["bitwise"]:
             raise AssertionError(f"parity block {k}: K1 (block width {demod_cuda.BLOCK_WIDTH}) is not bit for bit the plain "
                                  f"version: {err}; state differences {({n: v for n, v in diffs.items() if v})}")
+        scene["blocks"].append((ks, mags, iqs, kout, pout))
         ks, ps = kout[0], pout[0]
     opens = ps.open_count[hot].tolist()
     ct = [h for h in hot if bool(params.ctcss_enabled[h])]
@@ -311,7 +363,7 @@ def phase_parity(device) -> dict:
     log(f"parity scene: hot channels {hot} open_count {opens}; CTCSS channel {ct} fast/slow decisions {decided}")
     if min(opens) <= 0 or len(ct) != 1 or sum(decided) <= 0:
         raise AssertionError("parity scene did not open every hot squelch or decide a CTCSS window")
-    return err
+    return err, scene
 
 
 def phase_snr(device) -> float:
@@ -364,11 +416,15 @@ def demod_bound(params, state, mags) -> tuple[float, str, str]:
 
 def k1_designs() -> dict:
     """K1's launchers by name: the shared-memory design at each built block
-    width, and the first, device-memory design."""
+    width, the first, device-memory design, and the schedules (named by
+    ``demod_cuda.schedule_name``; the pair schedule needs an even count of
+    32-channel tiles, as every count here has)."""
     from rtlsdr_airband_tpu_torch.ops import demod_cuda
 
     designs = {f"smem{w}": (lambda lib, args, w=w: demod_cuda.launch_kernel(lib, args, w)) for w in demod_cuda.BLOCK_WIDTHS}
     designs["global"] = demod_cuda.launch_global_kernel
+    for unroll, pair in SCHEDULES:
+        designs[demod_cuda.schedule_name(unroll, pair)] = demod_cuda.schedule_launcher(unroll, pair)
     return designs
 
 
@@ -384,15 +440,9 @@ def kernel_ms(launcher, params, state, mags, iqs, reps: int, with_ctcss: bool = 
 
 def same_bits(a, b) -> bool:
     """Two demod returns equal bit for bit in every output and state leaf."""
-    import torch
+    from rtlsdr_airband_tpu_torch.scripts.common import same_outputs
 
-    from rtlsdr_airband_tpu_torch.interop import state_to_numpy
-
-    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x  # noqa: E731
-    if not all(torch.equal(bits(x), bits(y)) for x, y in zip(a[1:], b[1:])):
-        return False
-    sa, sb = state_to_numpy(a[0]), state_to_numpy(b[0])
-    return all(sa[k].tobytes() == sb[k].tobytes() for k in sa)
+    return same_outputs(a, b)
 
 
 def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int | None) -> dict:
@@ -477,6 +527,8 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
         issue_bound_ms=issue_ms,
         launches=launches,
         flagship=(block, x, state0),
+        schedule_ms={demod_cuda.schedule_name(u, p): mean[demod_cuda.schedule_name(u, p), True] for u, p in SCHEDULES},
+        schedule_no_ctcss_ms={demod_cuda.schedule_name(u, p): mean[demod_cuda.schedule_name(u, p), False] for u, p in SCHEDULES},
     )
     for (d, ct), v in per.items():
         log(f"K1 {d:<8s} {'with' if ct else 'without'} the CTCSS banks, per main-path block (ms): "
@@ -487,6 +539,10 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
         f"({', '.join(f'{w}: {v:.4f} ms' for w, v in widths.items())}); designs equal bit for bit on all {K_BLOCKS} blocks")
     log(f"K1 speedup over the device-memory design [{card}]: {mean['global', True] / mean[default, True]:.2f}x with the banks, "
         f"{mean['global', False] / mean[default, False]:.2f}x without")
+    log(f"K1 schedules against the default (width {demod_cuda.BLOCK_WIDTH}) [{card}], mean of the {K_BLOCKS} main-path blocks "
+        "with / without the CTCSS banks: " + "; ".join(
+            f"{n} {t['schedule_ms'][n]:.4f} / {t['schedule_no_ctcss_ms'][n]:.4f} ms ({t['schedule_ms'][n] / mean[default, True]:.3f}x)"
+            for n in t["schedule_ms"]))
     log(f"K1 bound ({bound_by}): {how}")
     if issue_ms is not None:
         log(f"K1 issue bound: W x {step_instructions} SASS instructions of one step's loop body / {clock_mhz:.0f} MHz "
@@ -1563,6 +1619,103 @@ def phase_drivers(device, card: str, t: dict, workdir: str) -> dict:
     return dict(launches=sum(launches.values()), per_driver=launches, bench_block_ms=b["detail"]["block_ms"], sweep=sweep)
 
 
+def phase_schedules(device, card: str, scene: dict, t: dict, builds: dict) -> dict:
+    """Phase 11: K1's schedules against the plain version and the default,
+    the pair schedule through the stream by its environment variable, and
+    the three drivers that measure the schedules and the channelizer's
+    precision."""
+    import os
+
+    import torch
+
+    from rtlsdr_airband_tpu_torch.models.flagship import CENTER_FREQ, flagship_specs
+    from rtlsdr_airband_tpu_torch.ops import demod_cuda
+    from rtlsdr_airband_tpu_torch.runtime.pipeline import Pipeline, PipelineConfig
+    from rtlsdr_airband_tpu_torch.scripts import bench_bf16, bench_pair, bench_unroll
+
+    t_phase = time.perf_counter()
+    # ---- (a) every schedule on phase 3's scene, bit for bit ----
+    params = scene["params"]
+    for unroll, pair in SCHEDULES:
+        name = demod_cuda.schedule_name(unroll, pair)
+        for k, (st, mags, iqs, kout, pout) in enumerate(scene["blocks"]):
+            got = demod_cuda.demod_block_cuda(params, st, mags, iqs, with_iq=True, unroll=unroll, pair=pair)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            if not (same_bits(got, pout) and same_bits(got, kout)):
+                raise AssertionError(f"schedules (a): {name} on parity block {k}: equal to the plain version "
+                                     f"{same_bits(got, pout)}, to the default {same_bits(got, kout)}")
+    log(f"schedules (a) [{card}]: {', '.join(demod_cuda.schedule_name(u, p) for u, p in SCHEDULES)} on the {C_FLAGSHIP}-channel "
+        f"parity scene ({len(scene['blocks'])} blocks of {scene['blocks'][0][1].shape[0]} samples, CTCSS banks on): audio, IQ, "
+        f"flags and every state leaf equal the plain version's and the default schedule's bit for bit")
+
+    # ---- (b) the stream with RTLSDR_DEMOD_PAIR=1 against the stream without ----
+    specs = flagship_specs(C_FLAGSHIP)
+    raw = stream_bytes(specs, PAIR_STREAM_BLOCKS, seed=11)
+    cfg = PipelineConfig(sample_rate=2_560_000, center_freq=CENTER_FREQ, fft_size=512, wave_rate=16000, sample_format="u8",
+                         fullscale=127.5, chunk_blocks=PAIR_STREAM_BLOCKS, async_depth=1)
+    saved = os.environ.get(demod_cuda.PAIR_ENV)
+    runs = {}
+    try:
+        for env in ("0", "1"):
+            os.environ[demod_cuda.PAIR_ENV] = env
+            p = Pipeline(cfg, specs)
+            p.warm()
+            demod_cuda.SCHEDULE_LAUNCHES.clear()
+            outs = []
+            n, wall = stream(p, raw, lambda o: outs.append({key: np.array(v) for key, v in o.items()}))
+            runs[env] = (outs, dict(demod_cuda.SCHEDULE_LAUNCHES), wall / n * 1e3)
+    finally:
+        if saved is None:
+            os.environ.pop(demod_cuda.PAIR_ENV, None)
+        else:
+            os.environ[demod_cuda.PAIR_ENV] = saved
+    (ref, ref_counts, ref_ms), (got, pair_counts, pair_ms) = runs["0"], runs["1"]
+    bad = [(k, key) for k, (r, g) in enumerate(zip(ref, got)) for key in r
+           if key not in g or r[key].dtype != g[key].dtype or r[key].tobytes() != g[key].tobytes()]
+    if len(ref) != PAIR_STREAM_BLOCKS or len(got) != len(ref) or bad:
+        raise AssertionError(f"schedules (b): {len(got)} / {len(ref)} blocks, differing (block, key) {bad[:8]}")
+    if pair_counts != {"pair_u1": PAIR_STREAM_BLOCKS} or ref_counts != {"single_u1": PAIR_STREAM_BLOCKS}:
+        raise AssertionError(f"schedules (b): schedules run {pair_counts} with {demod_cuda.PAIR_ENV}=1, {ref_counts} without")
+    log(f"schedules (b) [{card}]: the streaming flagship ({C_FLAGSHIP} channels, {len(ref)} blocks, dense f32) with "
+        f"{demod_cuda.PAIR_ENV}=1 ran {pair_counts}, without it {ref_counts}; every key ({sorted(ref[0])}) of every block "
+        f"equal bit for bit; wall a block {pair_ms:.3f} against {ref_ms:.3f} ms (one run each, warm)")
+
+    # ---- (c) the drivers ----
+    drivers = {}
+    for C in SCHEDULE_COUNTS:
+        env = dict(BENCH_PAIR_CHANNELS=str(C), BENCH_PAIR_K=str(K_BLOCKS))
+        (bp,), _ = run_driver(f"bench_pair {C}", bench_pair.main, env)
+        if not bp["parity"]["bit_for_bit"] or not bp["parity"]["timed_blocks_bit_for_bit"] or bp["schedule"] != "pair_u1":
+            raise AssertionError(f"bench_pair at {C}: parity {bp['parity']}, schedule {bp['schedule']}")
+        lines, _ = run_driver(f"bench_unroll {C}", bench_unroll.main, dict(BENCH_CHANNELS=str(C)))
+        if [x["unroll"] for x in lines] != [1, 2, 4] or not all(x["equal_to_default_bit_for_bit"] for x in lines):
+            raise AssertionError(f"bench_unroll at {C}: {lines}")
+        drivers[C] = dict(pair=bp, unroll={x["schedule"]: x for x in lines})
+        log(f"schedules (c) [{card}] at {C} channels: K1 a block single_u1 {bp['ms_single']:.4f}, pair_u1 {bp['ms_pair']:.4f} ms "
+            f"(speedup {bp['speedup']:.3f}); unroll " + ", ".join(f"{x['unroll']}: {x['demod_ms_per_block']:.4f} ms "
+                                                                  f"({x['us_per_step']:.4f} us a step)" for x in lines))
+    precisions, _ = run_driver("bench_bf16", bench_bf16.main, dict(BENCH_CHANNELS=str(C_FLAGSHIP)))
+    prec = {x["mode"]: x for x in precisions}
+    if list(prec) != list(bench_bf16.MODES) or not prec["highest"]["passes_gate"]:
+        raise AssertionError(f"bench_bf16: modes {list(prec)}, highest {prec.get('highest')}")
+    log(f"schedules (c) [{card}] channelizer precisions at {C_FLAGSHIP} channels: " + "; ".join(
+        f"{m} {x['chan_ms']:.4f} ms {x['snr_db']:.2f} dB ({'clears' if x['passes_gate'] else 'below'} 80 dB)" for m, x in prec.items()))
+
+    # ---- (d) per schedule, what the kernels line carries ----
+    per = {}
+    for name, b in builds.items():
+        if name.endswith("_bw32"):
+            continue
+        per[name] = dict(b, ms=t["k1_ms"] if name == "single_u1" else t["schedule_ms"][name],
+                         no_ctcss_ms=t["k1_no_ctcss_ms"] if name == "single_u1" else t["schedule_no_ctcss_ms"][name],
+                         stream_launches=pair_counts.get(name, 0) + ref_counts.get(name, 0), bit_for_bit=True,
+                         driver_ms={str(C): (d["unroll"][name]["demod_ms_per_block"] if name in d["unroll"] else
+                                             d["pair"]["ms_pair"] if name == "pair_u1" else None) for C, d in drivers.items()})
+    log(f"schedules: phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(schedules=per, precisions=prec, pair_stream_launches=pair_counts.get("pair_u1", 0))
+
+
 def main() -> int:
     try:
         import torch
@@ -1591,14 +1744,14 @@ def main() -> int:
         for fn, lines in ptxas_summary(b.log).items():
             log(f"  ptxas {fn}: {' | '.join(lines)}")
     clock_mhz = float(smi("clocks.max.sm").split()[0])
-    step_instructions = phase_k1_build(built["demod.cu"].path)
+    step_instructions, k1_builds = phase_k1_build(built)
     # K2's chains must survive the compiler: 2 * L dependent FMUL/FADD a
     # trip (times the W loop's unroll) and no FFMA under --fmad=false
     for fn, n in sass_ops(built["chain_probe.cu"].path).items():
         log(f"sass {fn[-40:]}: {n}")
     log(f"build total: {time.perf_counter() - t0:.1f} s")
 
-    err = phase_parity(device)
+    err, scene = phase_parity(device)
     phase_snr(device)
     t = phase_main_path(device, card, clock_mhz, step_instructions)
     p = phase_probe(device, card, t, clock_mhz)
@@ -1616,6 +1769,7 @@ def main() -> int:
                 f"this machine has {torch.cuda.device_count()} GPU and NCCL refuses two ranks on one GPU (App refuses to "
                 f"repeat a GPU in its mesh)")
         dr = phase_drivers(device, card, t, workdir)
+    sc = phase_schedules(device, card, scene, t, k1_builds)
     mesh_launches = mb["launches"] + ms["launches"] + mg["launches"] + mg["app_launches"]
 
     log(f"kernels: K1 demod (csrc/demod.cu) launches {t['launches']} on the main path, {s['launches']} on the "
@@ -1624,7 +1778,8 @@ def main() -> int:
         f"K2 chain_probe (csrc/chain_probe.cu) launches {p['launches']} equal bit for bit in chain1, chain2, chain1w "
         f"(max |diff| {p['err']}), latency bound {p['latency_bound_ms']:.6f} ms; K1 on the mesh: {mesh_launches} launches "
         f"({mb['shards']} a block at {mb['widths']} channels), {mb['shard_ms']:.4f} ms at {mb['widths'][0]} channels (mean of the shards); "
-        f"K1 in the drivers: {dr['launches']} launches")
+        f"K1 in the drivers: {dr['launches']} launches; K1's pair schedule {sc['pair_stream_launches']} launches on the "
+        f"stream with {PAIR_STREAM_BLOCKS} blocks, every schedule bit for bit")
     log(json.dumps({"kernels": [{
         "name": "demod",
         "route": "cuda",
@@ -1645,6 +1800,7 @@ def main() -> int:
         "latency_bound_ms": t["issue_bound_ms"],
         "global_design_ms": t["k1_global_ms"],
         "library_ms": None,
+        "schedules": sc["schedules"],
     }, {
         "name": "chain_probe",
         "route": "cuda",

@@ -39,39 +39,15 @@
 //
 // The device-memory design stays as demod_global_kernel, the same header
 // instantiated with device-memory accessors, launched only to time the new
-// design against it.
+// design against it.  The kernels are templates (demod_kernels.cuh); this
+// file builds the default schedule, one sample a loop trip, at both block
+// widths.  The schedules a caller may ask for instead, several samples a
+// trip and two channel tiles a block, are built from the same templates by
+// demod_sched.cu.
 
-#include <cuda_runtime.h>
-
-#include "demod_tiles.cuh"
+#include "demod_kernels.cuh"
 
 namespace {
-
-template <int BW>
-__global__ void __launch_bounds__(BW) demod_kernel(const __grid_constant__ DemodArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  using L = demod::SmemLayout<BW>;
-  for (int i = threadIdx.x; i < demod::LUT_ENTRIES; i += BW) {
-    smem[L::sin_lut + i] = a.p_sin_lut[i];
-    smem[L::cos_lut + i] = a.p_cos_lut[i];
-  }
-  __syncthreads();
-  const int c = blockIdx.x * BW + threadIdx.x;
-  if (c < a.C) demod::demod_tiled<BW>(a, c, threadIdx.x, smem);
-}
-
-template <int BW>
-cudaError_t launch(const DemodArgs& a, cudaStream_t stream) {
-  const int bytes = static_cast<int>(demod::SmemLayout<BW>::bytes);
-  cudaError_t e = cudaFuncSetAttribute(demod_kernel<BW>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  // the largest carveout, so two 32-channel blocks fit on one SM
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(demod_kernel<BW>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return e;
-  demod_kernel<BW><<<(a.C + BW - 1) / BW, BW, bytes, stream>>>(a);
-  return cudaGetLastError();
-}
 
 constexpr int kGlobalThreads = 64;
 
@@ -96,9 +72,9 @@ extern "C" int demod_launch(const DemodArgs* a, int block_width, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   switch (block_width) {
     case 32:
-      return static_cast<int>(launch<32>(*a, s));
+      return static_cast<int>(launch_tiled<32, 1>(*a, s));
     case 64:
-      return static_cast<int>(launch<64>(*a, s));
+      return static_cast<int>(launch_tiled<64, 1>(*a, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -15,7 +15,7 @@ namespace {
 // shared-memory image reused by group after group as an SM reuses its
 // shared memory, the lanes of a group run one after another (each touches
 // only its own column, as each thread does on the card).
-template <int BW>
+template <int BW, int U>
 int run_tiled(const DemodArgs& a) {
   using L = demod::SmemLayout<BW>;
   std::vector<float> smem((L::bytes + sizeof(float) - 1) / sizeof(float));
@@ -24,21 +24,50 @@ int run_tiled(const DemodArgs& a) {
     smem[L::cos_lut + i] = a.p_cos_lut[i];
   }
   for (int c0 = 0; c0 < a.C; c0 += BW)
-    for (int lane = 0; lane < BW && c0 + lane < a.C; ++lane) demod::demod_tiled<BW>(a, c0 + lane, lane, smem.data());
+    for (int lane = 0; lane < BW && c0 + lane < a.C; ++lane) demod::demod_tiled<BW, U>(a, c0 + lane, lane, smem.data());
+  return 0;
+}
+
+// The pair schedule as the kernel runs it: blocks of two PAIR_TILE-channel
+// tiles on one pair-block image, each lane stepping its two channels
+// interleaved, lane after lane.
+template <int U>
+int run_pair(const DemodArgs& a) {
+  using L = demod::SmemLayout<demod::PAIR_TILE>;
+  std::vector<float> smem((demod::PairLayout::bytes + sizeof(float) - 1) / sizeof(float));
+  for (int i = 0; i < demod::LUT_ENTRIES; ++i) {
+    smem[L::sin_lut + i] = a.p_sin_lut[i];
+    smem[L::cos_lut + i] = a.p_cos_lut[i];
+  }
+  for (int c0 = 0; c0 < a.C; c0 += 2 * demod::PAIR_TILE)
+    for (int lane = 0; lane < demod::PAIR_TILE && c0 + lane < a.C; ++lane)
+      demod::demod_tiled_pair<U>(a, c0 + lane, lane, smem.data());
   return 0;
 }
 
 }  // namespace
 
-extern "C" int demod_host_tiled(const DemodArgs* a, int block_width) {
-  switch (block_width) {
-    case 32:
-      return run_tiled<32>(*a);
-    case 64:
-      return run_tiled<64>(*a);
-    default:
-      return 1;
+// The schedules the card builds (csrc/demod.cu, csrc/demod_sched.cu): block
+// width 32 or 64 at unroll 1, 64 at unroll 2 or 4, the pair block at unroll
+// 1, 2 or 4.  Returns 0, or 1 for a schedule not built.
+extern "C" int demod_host_tiled(const DemodArgs* a, int block_width, int unroll, int pair) {
+  if (pair) {
+    switch (unroll) {
+      case 1:
+        return run_pair<1>(*a);
+      case 2:
+        return run_pair<2>(*a);
+      case 4:
+        return run_pair<4>(*a);
+      default:
+        return 1;
+    }
   }
+  if (block_width == 32 && unroll == 1) return run_tiled<32, 1>(*a);
+  if (block_width == 64 && unroll == 1) return run_tiled<64, 1>(*a);
+  if (block_width == 64 && unroll == 2) return run_tiled<64, 2>(*a);
+  if (block_width == 64 && unroll == 4) return run_tiled<64, 4>(*a);
+  return 1;
 }
 
 // The device-memory design; scratch is [GLOBAL_SCRATCH_ROWS, C] float32.
@@ -48,6 +77,8 @@ extern "C" int demod_host_global(const DemodArgs* a, float* scratch) {
 }
 
 extern "C" size_t demod_smem_bytes(int block_width) { return demod::smem_bytes(block_width); }
+
+extern "C" size_t demod_pair_smem_bytes() { return demod::PairLayout::bytes; }
 
 extern "C" int demod_global_scratch_rows() { return demod::GLOBAL_SCRATCH_ROWS; }
 

@@ -17,8 +17,14 @@
 // tables read from the parameters, each sample loaded from device memory at
 // the top of its step.
 //
-// The host build (demod_host.cpp) runs both with memcpy in place of
-// cp.async, so the CPU tests hold the tiled index arithmetic too.
+// The schedules (demod_sched.cu): U samples a loop trip (demod_channel's
+// U), and the pair block, two tiles of PAIR_TILE channels on one tile's
+// threads, each thread stepping one channel of each tile together
+// (demod_tiled_pair).
+//
+// The host build (demod_host.cpp) runs every design and schedule with
+// memcpy in place of cp.async, so the CPU tests hold the tiled index
+// arithmetic too.
 
 #pragma once
 
@@ -90,7 +96,7 @@ DEMOD_HD Column global_column(const DemodArgs& a, float* scratch, int c) {
 
 DEMOD_HD void demod_global(const DemodArgs& a, int c, const float* sin_lut, const float* cos_lut, float* scratch) {
   GlobalSource src{a.mags, a.iqs, a.iq_tail, (size_t)a.C, c};
-  demod_channel(a, c, sin_lut, cos_lut, global_column(a, scratch, c), src);
+  demod_channel<1>(a, c, sin_lut, cos_lut, global_column(a, scratch, c), src);
 }
 
 // ---- the shared-memory design ----
@@ -116,6 +122,16 @@ inline size_t smem_bytes(int block_width) {
   return block_width == 32 ? SmemLayout<32>::bytes : block_width == 64 ? SmemLayout<64>::bytes : 0;
 }
 
+// The pair schedule's block: two tiles of PAIR_TILE channels on PAIR_TILE
+// threads, each tile in an image of SmemLayout<PAIR_TILE>, the second
+// `image` floats after the first.  The sin/cos table is read from the first
+// image only.
+constexpr int PAIR_TILE = 32;
+struct PairLayout {
+  static constexpr size_t image = (SmemLayout<PAIR_TILE>::bytes + 15) / 16 * 4;  // floats, 16-byte aligned
+  static constexpr size_t bytes = 4 * image + SmemLayout<PAIR_TILE>::bytes;
+};
+
 // One channel's input, staged a tile ahead into its column of the tiles.
 template <int BW>
 struct TileSource {
@@ -125,8 +141,9 @@ struct TileSource {
   size_t C;
   int c, W;
 
-  // stage samples k*TILE .. min(W, (k+1)*TILE) - 1 into buffer k % 2
-  DEMOD_HD void fetch(int k) {
+  // stage samples k*TILE .. min(W, (k+1)*TILE) - 1 into buffer k % 2,
+  // without closing the group
+  DEMOD_HD void stage_tile(int k) {
     float* mb = m + (k & 1) * TILE * BW;
     float* qb = q + (k & 1) * TILE * BW * 2;
     const int n0 = k * TILE;
@@ -136,31 +153,62 @@ struct TileSource {
       stage<4>(mb + j * BW, mags + (size_t)n * C + c);
       stage<8>(qb + 2 * j * BW, iq_at(iqs, iq_tail, C, c, n));
     }
+  }
+
+  DEMOD_HD void fetch(int k) {
+    stage_tile(k);
     stage_commit();  // an empty group past the end keeps the count uniform
   }
 
+  // sample n from the tile that holds it (landed)
+  DEMOD_HD void row(int n, float& s, float& r, float& i) const {
+    const int k = ((n / TILE) & 1) * TILE + n % TILE;
+    s = m[k * BW];
+    r = q[2 * k * BW];
+    i = q[2 * k * BW + 1];
+  }
+
   DEMOD_HD void at(int n, float& s, float& r, float& i) {
-    const int k = n / TILE, j = n % TILE;
-    if (j == 0) {
-      fetch(k + 1);        // the next tile copies in while this one is used
-      stage_wait_prior();  // tile k has landed
+    if (n % TILE == 0) {
+      fetch(n / TILE + 1);  // the next tile copies in while this one is used
+      stage_wait_prior();   // this tile has landed
     }
-    const int row = (k & 1) * TILE + j;
-    s = m[row * BW];
-    r = q[2 * row * BW];
-    i = q[2 * row * BW + 1];
+    row(n, s, r, i);
   }
 };
 
-// Channel c as lane `lane` of a block whose shared memory is `smem` (laid
-// out by SmemLayout<BW>, the sin/cos table already in place).
+// Two channels' inputs for the pair schedule: both columns' tile k + 1 staged
+// in ONE commit group, so `wait_group 1` (all groups but the newest) covers
+// tile k of both, and neither channel's prefetch waits on the other's.
 template <int BW>
-DEMOD_HD void demod_tiled(const DemodArgs& a, int c, int lane, float* smem) {
+struct PairTileSource {
+  TileSource<BW> A, B;
+
+  DEMOD_HD void fetch(int k) {
+    A.stage_tile(k);
+    B.stage_tile(k);
+    stage_commit();
+  }
+
+  DEMOD_HD void at(int n, float& sa, float& ra, float& ia, float& sb, float& rb, float& ib) {
+    if (n % TILE == 0) {
+      fetch(n / TILE + 1);
+      stage_wait_prior();
+    }
+    A.row(n, sa, ra, ia);
+    B.row(n, sb, rb, ib);
+  }
+};
+
+// Channel c's column in a block image laid out by SmemLayout<BW>; copies its
+// tone tables in when it is a CTCSS channel (only those banks read them).
+template <int BW>
+DEMOD_HD Column tiled_column(const DemodArgs& a, int c, int lane, float* smem) {
   using L = SmemLayout<BW>;
   const size_t C = (size_t)a.C;
   float* coeff = smem + L::coeff + lane;
   uint8_t* mask = reinterpret_cast<uint8_t*>(smem) + L::mask + lane;
-  if (a.with_ctcss && a.p_ctcss_enabled[c]) {  // only a CTCSS channel's banks read the tables
+  if (a.with_ctcss && a.p_ctcss_enabled[c]) {
     for (int t = 0; t < MAX_TONES; ++t) {
       coeff[t * BW] = a.p_fast_coeff[t * C + c];
       coeff[(MAX_TONES + t) * BW] = a.p_slow_coeff[t * C + c];
@@ -169,11 +217,46 @@ DEMOD_HD void demod_tiled(const DemodArgs& a, int c, int lane, float* smem) {
     }
   }
   float* q = smem + L::banks + lane;
-  const Column col{smem + L::sq + lane, smem + L::dl + lane, q, q + MAX_TONES * BW, q + 2 * MAX_TONES * BW,
-                   q + 3 * MAX_TONES * BW, coeff, coeff + MAX_TONES * BW, mask, mask + MAX_TONES * BW, (size_t)BW};
-  TileSource<BW> src{smem + L::mags + lane, smem + L::iq + 2 * lane, a.mags, a.iqs, a.iq_tail, C, c, a.W};
+  return Column{smem + L::sq + lane, smem + L::dl + lane, q, q + MAX_TONES * BW, q + 2 * MAX_TONES * BW,
+                q + 3 * MAX_TONES * BW, coeff, coeff + MAX_TONES * BW, mask, mask + MAX_TONES * BW, (size_t)BW};
+}
+
+template <int BW>
+DEMOD_HD TileSource<BW> tile_source(const DemodArgs& a, int c, int lane, float* smem) {
+  using L = SmemLayout<BW>;
+  return TileSource<BW>{smem + L::mags + lane, smem + L::iq + 2 * lane, a.mags, a.iqs, a.iq_tail, (size_t)a.C, c, a.W};
+}
+
+// Channel c as lane `lane` of a block whose shared memory is `smem` (laid
+// out by SmemLayout<BW>, the sin/cos table already in place), U samples a
+// loop trip.
+template <int BW, int U>
+DEMOD_HD void demod_tiled(const DemodArgs& a, int c, int lane, float* smem) {
+  using L = SmemLayout<BW>;
+  const Column col = tiled_column<BW>(a, c, lane, smem);
+  TileSource<BW> src = tile_source<BW>(a, c, lane, smem);
   src.fetch(0);
-  demod_channel(a, c, smem + L::sin_lut, smem + L::cos_lut, col, src);
+  demod_channel<U>(a, c, smem + L::sin_lut, smem + L::cos_lut, col, src);
+}
+
+// Lane `lane` of a pair block (PairLayout, the sin/cos table in place in the
+// first image): channel c of the first tile and c + PAIR_TILE of the second,
+// stepped together.  Where the second tile is ragged, a lane without a
+// second channel steps its first alone.
+template <int U>
+DEMOD_HD void demod_tiled_pair(const DemodArgs& a, int c, int lane, float* smem) {
+  using L = SmemLayout<PAIR_TILE>;
+  const int cB = c + PAIR_TILE;
+  if (cB >= a.C) {
+    demod_tiled<PAIR_TILE, U>(a, c, lane, smem);
+    return;
+  }
+  float* smemB = smem + PairLayout::image;
+  const Column colA = tiled_column<PAIR_TILE>(a, c, lane, smem);
+  const Column colB = tiled_column<PAIR_TILE>(a, cB, lane, smemB);
+  PairTileSource<PAIR_TILE> src{tile_source<PAIR_TILE>(a, c, lane, smem), tile_source<PAIR_TILE>(a, cB, lane, smemB)};
+  src.fetch(0);
+  demod_pair<U>(a, c, cB, smem + L::sin_lut, smem + L::cos_lut, colA, colB, src);
 }
 
 }  // namespace demod

@@ -1,9 +1,10 @@
 """Launcher of the demod kernel K1 (``csrc/demod.cu``).
 
 Counterpart of ``rtlsdr_airband_tpu/ops/demod_pallas.py::demod_block_pallas``:
-same arguments and returns, minus the TPU schedule knobs.  For CUDA tensors
-``demod_block_cuda`` launches the kernel or raises; for CPU tensors it runs
-the plain PyTorch version, ``ops.demod.demod_block``.
+same arguments and returns, its schedule options ``unroll`` and ``pair``
+included, ``interpret`` left out.  For CUDA tensors ``demod_block_cuda``
+launches the kernel or raises; for CPU tensors it runs the plain PyTorch
+version, ``ops.demod.demod_block``.
 
 The kernel keeps a block's rings, Goertzel banks and input tiles in shared
 memory; it is built at the block widths ``BLOCK_WIDTHS`` and launched at
@@ -12,15 +13,30 @@ design, with rings and banks in device memory, stays launchable through
 ``launch_global_kernel`` only, as the yardstick ``chip_smoke.py`` times the
 kernel against.
 
+The schedules (``csrc/demod_sched.cu``, a library of their own built at
+first use): ``unroll`` U in ``UNROLLS`` steps U samples a loop trip;
+``pair`` runs blocks of two ``PAIR_TILE``-channel tiles on one tile's
+threads, each thread stepping one channel of each tile together.  Both are
+the default's arithmetic in another order, so every output and state leaf
+is the same, bit for bit; the default stays the default.  ``pair=None``
+reads ``RTLSDR_DEMOD_PAIR`` ("1" turns it on), as the JAX package does, so
+``Pipeline`` and ``App`` honour the variable; as in the JAX package the pair
+schedule runs only where the tile count is even, and the default otherwise.
+The schedules are built at the default block width only.
+
 The kernel reads the state from the input tensors and writes a fresh state,
 so the caller's state is never modified.  ``LAUNCHES`` counts kernel
-launches, so a run can show that its main path went through the kernel.
+launches, so a run can show that its main path went through the kernel;
+``SCHEDULE_LAUNCHES`` counts them by schedule (``schedule_name``), so a run
+can show which schedule ran.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+import os
 
 import torch
 
@@ -30,9 +46,14 @@ from .demod import SQ_BUF, ChannelParams, CtcssState, DemodState, apply_fade_and
 from .goertzel import MAX_TONES
 
 LAUNCHES = 0
+SCHEDULE_LAUNCHES: collections.Counter = collections.Counter()
+HOST_SCHEDULE = None  # the schedule demod_block_host ran last (a test aid)
 
 BLOCK_WIDTHS = (32, 64)  # channels a block, the widths csrc/demod.cu instantiates
 BLOCK_WIDTH = 64  # the default: the faster of the two on the card (PERF.md, section 6)
+UNROLLS = (1, 2, 4)  # samples a loop trip csrc/demod_sched.cu builds (at BLOCK_WIDTH)
+PAIR_TILE = 32  # channels a tile in the pair schedule; a pair block holds two
+PAIR_ENV = "RTLSDR_DEMOD_PAIR"
 
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
 _INT_ARGS = ("W", "C", "fm_quadri", "with_ctcss", "with_iq")
@@ -161,6 +182,30 @@ def _check_width(block_width: int) -> None:
         raise ValueError(f"block width {block_width}: the kernel is built for {BLOCK_WIDTHS} channels a block")
 
 
+def resolve_schedule(C: int, block_width: int, unroll: int, pair: bool | None) -> tuple[int, bool]:
+    """The schedule that runs for ``C`` channels: (unroll, pair).
+
+    ``pair=None`` reads ``RTLSDR_DEMOD_PAIR``.  Pair runs only where the
+    count of ``PAIR_TILE``-channel tiles is even (the JAX package's rule,
+    ``demod_pallas.py:708``); otherwise the default schedule runs at the
+    same unroll.  Raises ``ValueError`` for an unroll not in ``UNROLLS`` and
+    for a schedule at a block width it is not built at."""
+    _check_width(block_width)
+    if unroll not in UNROLLS:
+        raise ValueError(f"unroll {unroll!r}: the kernel is built for {UNROLLS} samples a loop trip")
+    if pair is None:
+        pair = os.environ.get(PAIR_ENV, "0") == "1"
+    if (unroll != 1 or pair) and block_width != BLOCK_WIDTH:
+        raise ValueError(f"block width {block_width}: the unroll and pair schedules are built at block width {BLOCK_WIDTH} only")
+    tiles = -(-C // PAIR_TILE)
+    return unroll, bool(pair) and tiles % 2 == 0
+
+
+def schedule_name(unroll: int, pair: bool) -> str:
+    """"single_u1" (the default), "single_u2", ..., "pair_u1", ... ."""
+    return f"{'pair' if pair else 'single'}_u{unroll}"
+
+
 def demod_block_cuda(
     params: ChannelParams,
     state: DemodState,
@@ -172,31 +217,40 @@ def demod_block_cuda(
     with_iq: bool = True,
     block_width: int = BLOCK_WIDTH,
     trace: bool = False,
+    unroll: int = 1,
+    pair: bool | None = None,
 ):
     """Drop-in replacement for :func:`ops.demod.demod_block`.
 
     Returns (new_state, audio [W, C], iq_out [W, C, 2], open_flags [W, C]).
     with_iq=False skips the per-sample IQ-tap stores (use when no channel has
     IQ outputs); iq_out is then zeros.  CUDA tensors launch the kernel with
-    ``block_width`` channels a block (one of ``BLOCK_WIDTHS``); CPU tensors
-    take the plain version.  The kernel has no trace output: ``trace=True``
-    raises on any device (trace mode is the plain version's, as the JAX
-    package traces through its XLA scan only).
+    ``block_width`` channels a block (one of ``BLOCK_WIDTHS``) in the
+    schedule ``unroll`` / ``pair`` ask for (:func:`resolve_schedule`); CPU
+    tensors take the plain version, which no schedule changes.  The kernel
+    has no trace output: ``trace=True`` raises on any device (trace mode is
+    the plain version's, as the JAX package traces through its XLA scan
+    only).
     """
     if trace:
         raise ValueError("demod_block_cuda: K1 has no trace mode; call ops.demod.demod_block(..., trace=True)")
-    _check_width(block_width)
+    unroll, pair = resolve_schedule(mags.shape[-1], block_width, unroll, pair)
     if mags.device.type == "cpu":
         st, audio, iq_out, open_now = demod_block(params, state, mags, iqs, fm_quadri=fm_quadri, with_ctcss=with_ctcss)
         return st, audio, (iq_out if with_iq else torch.zeros_like(iq_out)), open_now
     if mags.device.type != "cuda":
         raise ValueError(f"demod_block_cuda: unsupported device {mags.device}")
-    lib = cuda_library()
+    default = unroll == 1 and not pair
+    lib = cuda_library() if default else schedule_library()
 
     def launch(args):
         global LAUNCHES
-        launch_kernel(lib, args, block_width)
+        if default:
+            launch_kernel(lib, args, block_width)
+        else:
+            launch_schedule(lib, args, unroll, pair)
         LAUNCHES += 1
+        SCHEDULE_LAUNCHES[schedule_name(unroll, pair)] += 1
 
     with torch.cuda.device(mags.device):
         return run_with(launch, lib, params, state, mags, iqs, fm_quadri, with_ctcss, with_iq)
@@ -205,6 +259,9 @@ def demod_block_cuda(
 def _bind_common(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.demod_smem_bytes.restype = ctypes.c_size_t
     lib.demod_smem_bytes.argtypes = [ctypes.c_int]
+    if hasattr(lib, "demod_pair_smem_bytes"):
+        lib.demod_pair_smem_bytes.restype = ctypes.c_size_t
+        lib.demod_pair_smem_bytes.argtypes = []
     lib.demod_global_scratch_rows.restype = ctypes.c_int
     lib.demod_global_scratch_rows.argtypes = []
     return lib
@@ -222,11 +279,21 @@ def cuda_library() -> ctypes.CDLL:
 
 
 @functools.cache
+def schedule_library() -> ctypes.CDLL:
+    """The nvcc-built ``csrc/demod_sched.cu`` (K1's unroll and pair
+    schedules), built at first use and kept."""
+    lib = _bind_common(_build.load_kernel("demod_sched.cu"))
+    lib.demod_launch_schedule.restype = ctypes.c_int
+    lib.demod_launch_schedule.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+@functools.cache
 def host_library() -> ctypes.CDLL:
     """The g++ build of ``csrc/demod_host.cpp``, a test aid."""
     lib = _bind_common(_build.load_host("demod_host.cpp"))
     lib.demod_host_tiled.restype = ctypes.c_int
-    lib.demod_host_tiled.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.demod_host_tiled.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.demod_host_global.restype = ctypes.c_int
     lib.demod_host_global.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     return lib
@@ -236,6 +303,12 @@ def smem_bytes(lib: ctypes.CDLL, block_width: int) -> int:
     """Dynamic shared memory of one block of the kernel at ``block_width``."""
     _check_width(block_width)
     return int(lib.demod_smem_bytes(block_width))
+
+
+def pair_smem_bytes(lib: ctypes.CDLL) -> int:
+    """Dynamic shared memory of one pair block (two ``PAIR_TILE``-channel
+    tiles); ``lib`` the schedule library or the host build."""
+    return int(lib.demod_pair_smem_bytes())
 
 
 def _global_scratch(lib: ctypes.CDLL, args, device) -> torch.Tensor:
@@ -250,6 +323,27 @@ def launch_kernel(lib: ctypes.CDLL, args, block_width: int = BLOCK_WIDTH) -> Non
         raise RuntimeError(f"demod kernel launch failed: CUDA error {rc}")
 
 
+def launch_schedule(lib: ctypes.CDLL, args, unroll: int, pair: bool) -> None:
+    """One launch of K1 in schedule (unroll, pair) from the schedule
+    library on the current stream; raises if it was refused.  The caller
+    resolves the schedule first (:func:`resolve_schedule`)."""
+    rc = lib.demod_launch_schedule(ctypes.addressof(args), unroll, int(pair), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"demod kernel launch ({schedule_name(unroll, pair)}) failed: CUDA error {rc}")
+
+
+def schedule_launcher(unroll: int, pair: bool):
+    """``fn(lib, args)`` launching K1 in schedule (unroll, pair), resolved
+    already, for callers that time K1 alone around their own ``launch``
+    (``scripts/bench_scaling.py::kernel_ms``): :func:`launch_kernel` for the
+    default, the schedule library otherwise (``lib`` is then unused: the
+    two libraries take the same arguments)."""
+    if unroll == 1 and not pair:
+        return launch_kernel
+    sched = schedule_library()
+    return lambda _lib, args: launch_schedule(sched, args, unroll, pair)
+
+
 def launch_global_kernel(lib: ctypes.CDLL, args) -> None:
     """One launch of the first, device-memory design of K1 on the current
     stream (the yardstick; no path of the port calls it); raises if it was
@@ -260,21 +354,33 @@ def launch_global_kernel(lib: ctypes.CDLL, args) -> None:
         raise RuntimeError(f"demod (device-memory design) launch failed: CUDA error {rc}")
 
 
-def demod_block_host(params, state, mags, iqs, *, fm_quadri=False, with_ctcss=True, with_iq=True, block_width=BLOCK_WIDTH):
+def demod_block_host(params, state, mags, iqs, *, fm_quadri=False, with_ctcss=True, with_iq=True, block_width=BLOCK_WIDTH,
+                     unroll=1, pair=None):
     """Test aid: the kernel's code (``csrc/demod_step.cuh``,
     ``csrc/demod_tiles.cuh``) built for the host with g++ and run on CPU
     tensors.  ``block_width`` 32 or 64 runs the shared-memory design as the
     kernel does (channel groups of that width, [row][width] rings and banks,
-    input tiles); None runs the first, device-memory design.  Same returns
-    as :func:`demod_block_cuda`.  Not used by the port's own paths."""
+    input tiles), in the schedule ``unroll`` / ``pair`` resolve to, as
+    :func:`demod_block_cuda` resolves them; None runs the first,
+    device-memory design (default schedule only).  Same returns as
+    :func:`demod_block_cuda`; the schedule that ran is left in
+    ``HOST_SCHEDULE``.  Not used by the port's own paths."""
+    global HOST_SCHEDULE
     lib = host_library()
     if block_width is None:
+        if unroll != 1 or pair:
+            raise ValueError("the device-memory design runs the default schedule only")
+
         def launch(args):
             scratch = _global_scratch(lib, args, mags.device)
             lib.demod_host_global(ctypes.addressof(args), scratch.data_ptr())
+        HOST_SCHEDULE = "global"
     else:
-        _check_width(block_width)
+        unroll, pair = resolve_schedule(mags.shape[-1], block_width, unroll, pair)
 
         def launch(args):
-            lib.demod_host_tiled(ctypes.addressof(args), block_width)
+            if lib.demod_host_tiled(ctypes.addressof(args), block_width, unroll, int(pair)) != 0:
+                raise RuntimeError(f"host build: schedule {schedule_name(unroll, pair)} at block width {block_width} not built")
+        HOST_SCHEDULE = schedule_name(unroll, pair)
     return run_with(launch, lib, params, state, mags, iqs, fm_quadri, with_ctcss, with_iq)
+

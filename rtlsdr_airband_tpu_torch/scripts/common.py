@@ -37,6 +37,27 @@ def pick_device(on_cpu: bool, driver: str, cpu_switch: str) -> torch.device | No
     return torch.device("cuda", 0)
 
 
+def require_card(driver: str, why: str) -> torch.device | None:
+    """``cuda:0`` for a driver that has no CPU mode; None, with the reason
+    on stderr, without a card."""
+    if not torch.cuda.is_available():
+        print(f"{driver}: no CUDA device; {why}", file=sys.stderr)
+        return None
+    return torch.device("cuda", 0)
+
+
+def same_outputs(a, b) -> bool:
+    """Two demod returns (state, audio, iq, flags) equal bit for bit in every
+    output and state leaf (floats compared as their bits)."""
+    from ..interop import state_to_numpy
+
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x  # noqa: E731
+    if not all(torch.equal(bits(x), bits(y)) for x, y in zip(a[1:], b[1:])):
+        return False
+    sa, sb = state_to_numpy(a[0]), state_to_numpy(b[0])
+    return sa.keys() == sb.keys() and all(sa[k].tobytes() == sb[k].tobytes() for k in sa)
+
+
 def device_fields(device) -> dict:
     """``device`` (the card's name, or "cpu") and ``power_limit`` (the
     card's, from nvidia-smi; None on the CPU) for a driver's JSON line."""

@@ -4,7 +4,9 @@ on the card (chunked dispatch with a copy stream equal to single-block
 dispatch, K1 once a block) and the FFT channelizer's precision; the App
 from a libconfig file (K1 once a block, per-device demod threads equal to
 one thread bit for bit, no multi-GPU mesh); K1 refusing trace mode, which
-the plain version has; scripts/bench.py's line on the card.
+the plain version has; K1's unroll and pair schedules against the default at
+8192 channels and the pair rule at an odd tile count; scripts/bench.py's,
+bench_pair.py's and bench_unroll.py's lines on the card.
 
 Needs an NVIDIA GPU and nvcc; skips without a card.  The file imports
 neither jax nor the JAX package, so it also runs on a machine that has
@@ -142,6 +144,99 @@ def test_k1_refuses_to_trace_on_card(cuda_device):
     traced = demod_block(params, st, m, q, trace=True)
     assert traced[4]["cur"].shape == (150, len(specs)) and traced[4]["cur"].device.type == "cuda"
     assert_bitwise(demod_cuda.demod_block_cuda(params, st, m, q), traced[:4], "traced plain against K1")
+
+
+@pytest.fixture(scope="module")
+def flagship_scene_8192():
+    """Two blocks of the 8192-channel active scene (chip_smoke.py's parity
+    scene): the channelizer's outputs and the state entering each block,
+    threaded by the default schedule, with the default's outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    from rtlsdr_airband_tpu_torch.models.flagship import build_flagship_stream
+    from rtlsdr_airband_tpu_torch.ops.channelizer import channelize_matmul
+
+    dev = torch.device("cuda")
+    block, state, xs, _hot = build_flagship_stream(n_channels=8192, wave_batch=2000, n_blocks=2, device=dev)
+    kw = block.block_kwargs
+    blocks = []
+    for x in xs:
+        mags, iqs = channelize_matmul(x, block.bins, block.window, hop=kw["hop"], fft_size=kw["fft_size"], n_frames=kw["n_frames"],
+                                      taps=(block.taps_re, block.taps_im))
+        out = demod_cuda.demod_block_cuda(block.params, state, mags, iqs, pair=False)
+        blocks.append((state, mags, iqs, out))
+        state = out[0]
+    return block.params, blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unroll, pair", [(4, False), (1, True), (4, True)])
+def test_schedule_matches_default_on_card_at_8192(cuda_device, flagship_scene_8192, unroll, pair):
+    """K1's unroll and pair schedules at the flagship width (8192 channels,
+    W = 2000, CTCSS banks on) against the default schedule: every output and
+    state leaf bit for bit, and the schedule counter names the one that ran."""
+    params, blocks = flagship_scene_8192
+    name = demod_cuda.schedule_name(unroll, pair)
+    for k, (st, mags, iqs, want) in enumerate(blocks):
+        before = demod_cuda.SCHEDULE_LAUNCHES[name]
+        got = demod_cuda.demod_block_cuda(params, st, mags, iqs, unroll=unroll, pair=pair)
+        torch.cuda.synchronize()
+        assert demod_cuda.SCHEDULE_LAUNCHES[name] == before + 1
+        assert_bitwise(want, got, f"{name} block {k}")
+
+
+@pytest.mark.cuda
+def test_pair_runs_the_default_at_an_odd_tile_count_on_card(cuda_device, monkeypatch):
+    """RTLSDR_DEMOD_PAIR=1 at 96 channels (three 32-channel tiles) runs the
+    default schedule, at 100 (four, the last ragged) the pair schedule; both
+    bit for bit the plain version."""
+    monkeypatch.setenv(demod_cuda.PAIR_ENV, "1")
+    for C, want in ((96, "single_u1"), (100, "pair_u1")):
+        specs = [ChannelSpec(**k) for k in spec_population(C)]
+        params = make_channel_params(specs, wave_rate=16000, sample_rate=FS, center_freq=CENTER, fft_size=N, device="cpu")
+        rng = np.random.default_rng(C)
+        st = active_state(params, C, rng, cuda_device)
+        params = type(params)(*(t.to(cuda_device) for t in params))
+        m = torch.from_numpy(np.abs(rng.normal(0, 1.0, (131, C)) + 3.0).astype(np.float32)).to(cuda_device)
+        q = torch.from_numpy(rng.normal(0, 0.5, (131, C, 2)).astype(np.float32)).to(cuda_device)
+        before = demod_cuda.SCHEDULE_LAUNCHES[want]
+        got = demod_cuda.demod_block_cuda(params, st, m, q)
+        torch.cuda.synchronize()
+        assert demod_cuda.SCHEDULE_LAUNCHES[want] == before + 1
+        assert_bitwise(demod_block(params, st, m, q), got, f"C={C}")
+
+
+def _jax_line_keys(script: str) -> set:
+    """The keys of the dict literal a JAX script hands to ``json.dumps``,
+    read from its source (this file imports no JAX)."""
+    import ast
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for node in ast.walk(ast.parse(open(os.path.join(root, script)).read())):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "dumps" and node.args and isinstance(node.args[0], ast.Dict):
+            return {k.value for k in node.args[0].keys}
+    raise AssertionError(script)
+
+
+@pytest.mark.cuda
+def test_schedule_drivers_print_the_jax_keys_on_card(cuda_device, monkeypatch, capsys):
+    """bench_pair and bench_unroll at 256 channels: the JAX scripts' keys,
+    parity bit for bit, the card's name and power limit."""
+    import json
+
+    from rtlsdr_airband_tpu_torch.scripts import bench_pair, bench_unroll
+
+    for k, v in (("BENCH_PAIR_CHANNELS", "256"), ("BENCH_PAIR_K", "2"), ("BENCH_CHANNELS", "256"), ("BENCH_UNROLLS", "1,4")):
+        monkeypatch.setenv(k, v)
+    assert bench_pair.main() == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert _jax_line_keys("scripts/bench_pair.py") <= line.keys() and line["parity"]["bit_for_bit"] and line["schedule"] == "pair_u1"
+    assert line["device"] == torch.cuda.get_device_name(0) and line["ms_pair"] > 0
+    assert bench_unroll.main() == 0
+    lines = [json.loads(s) for s in capsys.readouterr().out.strip().splitlines()]
+    assert [x["unroll"] for x in lines] == [1, 4] and all(x["equal_to_default_bit_for_bit"] for x in lines)
+    assert all(_jax_line_keys("scripts/bench_unroll.py") <= x.keys() for x in lines)
 
 
 @pytest.mark.cuda

@@ -1,9 +1,11 @@
 """The port's drivers on the CPU, each with its explicit CPU switch and at a
 small size: ``scripts/bench.py``, ``entry.py`` (``entry``,
 ``dryrun_multichip``), ``scripts/bench_scaling.py``,
-``scripts/squelch_trace.py`` and ``scripts/debug_golden.py``; and every
-driver, without a card and without that switch, failing rather than running
-anywhere else.  ``scripts/bench_app.py`` and ``scripts/soak.py`` are in
+``scripts/squelch_trace.py``, ``scripts/debug_golden.py`` and
+``scripts/bench_bf16.py``; and every driver, without a card and without
+that switch, failing rather than running anywhere else
+(``scripts/bench_pair.py`` and ``scripts/bench_unroll.py``, which time K1's
+schedules, have no CPU mode at all).  ``scripts/bench_app.py`` and ``scripts/soak.py`` are in
 tests/test_torch_drivers_app.py; the demod's trace mode and
 ``scripts/e2e_snr.py``, held against the JAX package, in
 tests/test_torch_demod_trace.py.
@@ -30,7 +32,9 @@ import rtlsdr_airband_tpu_torch.runtime.pipeline as port_pipeline
 from rtlsdr_airband_tpu_torch import entry as port_entry
 from rtlsdr_airband_tpu_torch.interop import state_to_numpy
 from rtlsdr_airband_tpu_torch.ops import demod_cuda
-from rtlsdr_airband_tpu_torch.scripts import bench, bench_app, bench_scaling, debug_golden, e2e_snr, soak, squelch_trace
+from rtlsdr_airband_tpu_torch.scripts import (
+    bench, bench_app, bench_bf16, bench_pair, bench_scaling, bench_unroll, debug_golden, e2e_snr, soak, squelch_trace,
+)
 from torch_port_common import assert_close, jax_flat
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,6 +64,15 @@ def _jax_keys(script: str, var: str) -> tuple[set, set]:
             detail = next((v for k, v in zip(node.value.keys, node.value.values) if k.value == "detail"), None)
             return keys, ({k.value for k in detail.keys} if isinstance(detail, ast.Dict) else set())
     raise AssertionError(f"{script}: no dict literal assigned to {var}")
+
+
+def jax_dumps_keys(script: str) -> set:
+    """The keys of the dict literal a JAX script hands to ``json.dumps``."""
+    tree = ast.parse(open(os.path.join(ROOT, script)).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "dumps" and node.args and isinstance(node.args[0], ast.Dict):
+            return {k.value for k in node.args[0].keys}
+    raise AssertionError(f"{script}: no json.dumps of a dict literal")
 
 
 def _last_json(capsys) -> dict:
@@ -181,8 +194,42 @@ def test_debug_golden_on_the_cpu(capsys):
         assert line[name]["gate_mismatch"] == 0 and line[name]["audio"] <= 2e-5 and line[name]["iq"] <= 5e-4
 
 
+def test_bench_bf16_on_the_cpu(monkeypatch, capsys):
+    """BENCH_DEVICE=cpu at 64 channels: one line a mode, in the JAX order
+    plus tf32, with every key of the JAX line; float32 (``highest``) clears
+    the 80 dB gate against the float64 DFT and bfloat16 does not; the lines
+    say what ran on the CPU.  The port's channelizer settings are left as
+    they were."""
+    monkeypatch.setenv("BENCH_DEVICE", "cpu")
+    monkeypatch.setenv("BENCH_CHANNELS", "64")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    assert bench_bf16.main() == 0
+    lines = [json.loads(s) for s in capsys.readouterr().out.strip().splitlines()]
+    assert [x["mode"] for x in lines] == ["default", "high", "highest", "bf16", "tf32"]
+    keys = jax_dumps_keys("scripts/bench_bf16.py")
+    for x in lines:
+        assert keys <= x.keys() and x["n_channels"] == 64 and x["chan_ms"] > 0 and x["device"] == "cpu"
+        assert x["gate_db"] == 80.0 and x["passes_gate"] == (x["snr_db"] >= 80.0) and x["runs"] == bench_bf16.RUNS["cpu"][x["mode"]]
+    snr = {x["mode"]: x["snr_db"] for x in lines}
+    assert snr["highest"] >= 80.0 and snr["high"] >= 80.0 and snr["bf16"] < 80.0
+    assert torch.backends.cuda.matmul.allow_tf32 == tf32
+
+
+def test_bench_bf16_tf32_split_is_exact():
+    """``high``'s split: the head keeps TF32's 10 mantissa bits, the rest is
+    exact, head + rest == t bit for bit."""
+    t = torch.from_numpy(np.random.default_rng(3).normal(0, 1, (64, 32)).astype(np.float32))
+    head, rest = bench_bf16._tf32_split(t)
+    assert torch.equal(head + rest, t)
+    assert not bool((head.view(torch.int32) & 0x1FFF).any())
+    assert float((rest.abs() / t.abs().clamp_min(1e-30)).max()) < 2.0**-10
+
+
 DRIVERS = {
     "bench": lambda: bench.main(),
+    "bench_pair": lambda: bench_pair.main(),
+    "bench_unroll": lambda: bench_unroll.main(),
+    "bench_bf16": lambda: bench_bf16.main(),
     "bench_app": lambda: bench_app.main(),
     "soak": lambda: soak.main([]),
     "bench_scaling": lambda: bench_scaling.main([]),
@@ -214,7 +261,8 @@ def test_drivers_exit_non_zero_as_programs(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the drivers would run on it")
     env = {k: v for k, v in os.environ.items() if k not in ("BENCH_DEVICE", "BENCH_APP_CPU", "SOAK_CPU")}
-    mods = [f"rtlsdr_airband_tpu_torch.scripts.{m}" for m in ("bench", "bench_app", "soak", "bench_scaling", "e2e_snr")]
+    mods = [f"rtlsdr_airband_tpu_torch.scripts.{m}" for m in (
+        "bench", "bench_app", "soak", "bench_scaling", "e2e_snr", "bench_pair", "bench_unroll", "bench_bf16")]
     cmds = [[sys.executable, "-m", m] for m in mods] + [
         [sys.executable, "-m", "rtlsdr_airband_tpu_torch.scripts.squelch_trace", "--synth", str(tmp_path / "t.npz")],
         [sys.executable, "-m", "rtlsdr_airband_tpu_torch.scripts.debug_golden"],

@@ -100,7 +100,8 @@ def test_interop_round_trip_is_lossless():
 # the drivers and what they alone import: entry points, refmodel, siggen
 _DRIVERS = {f"rtlsdr_airband_tpu_torch.{m}" for m in (
     "entry", "refmodel.channel_ref", "refmodel.squelch_ref", "refmodel.ctcss_ref", "refmodel.filters_ref", "utils.siggen",
-    *(f"scripts.{s}" for s in ("common", "bench", "bench_app", "soak", "bench_scaling", "e2e_snr", "squelch_trace", "debug_golden")),
+    *(f"scripts.{s}" for s in ("common", "bench", "bench_app", "soak", "bench_scaling", "e2e_snr", "squelch_trace", "debug_golden",
+                               "bench_pair", "bench_unroll", "bench_bf16")),
 )}
 
 _PORT_MODULES = [
@@ -135,7 +136,8 @@ def test_package_data_ships_every_kernel_source():
         globs = tomllib.load(fh)["tool"]["setuptools"]["package-data"]["rtlsdr_airband_tpu_torch"]
     csrc = os.path.join(ROOT, "rtlsdr_airband_tpu_torch", "csrc")
     sources = [f"csrc/{f}" for f in sorted(os.listdir(csrc))]
-    assert {"csrc/demod.cu", "csrc/chain_probe.cu", "csrc/demod_step.cuh", "csrc/demod_host.cpp"} <= set(sources)
+    assert {"csrc/demod.cu", "csrc/demod_sched.cu", "csrc/demod_kernels.cuh", "csrc/chain_probe.cu", "csrc/demod_step.cuh",
+            "csrc/demod_host.cpp"} <= set(sources)
     for src in sources:
         assert any(fnmatch.fnmatchcase(src, g) for g in globs), f"{src} matches none of {globs}"
 
