@@ -35,7 +35,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-d", dest="debug_file", default=None, metavar="FILE", help="write debug log to FILE (reference: -d)")
     p.add_argument("--pidfile", default=None, help="pidfile path when daemonized")
     p.add_argument("--max-seconds", type=float, default=None, help="exit after N seconds (testing)")
-    p.add_argument("--profile", default=None, metavar="DIR", help="capture a torch.profiler trace of the run into DIR (Chrome trace JSON)")
+    p.add_argument("--profile", default=None, metavar="DIR", help="capture a torch.profiler trace of the run into DIR (Chrome trace JSON, with the program's spans)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda", help="where the pipelines run (default cuda: the GPU, failing without one)")
     p.add_argument("--check-config", action="store_true", help="parse + validate the config and exit (0 = ok)")
     return p
@@ -54,6 +54,19 @@ def daemonize(pidfile: str | None) -> None:
     if pidfile:
         with open(pidfile, "w") as f:
             f.write(str(os.getpid()))
+
+
+def write_profile(prof, directory: str) -> str:
+    """Write a finished profiler's Chrome trace into ``directory``, with the
+    program's spans (``runtime/trace.py``) on a row of their own; returns
+    the file's path."""
+    from .runtime import trace
+
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"trace-{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    trace.append_to_chrome_trace(path)
+    return path
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -106,10 +119,8 @@ def main(argv: list[str] | None = None) -> int:
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if args.device == "cuda" else [])
         with profile(activities=activities) as prof:
             app.run(max_seconds=args.max_seconds)
-        os.makedirs(args.profile, exist_ok=True)
-        trace = os.path.join(args.profile, f"trace-{os.getpid()}.json")
-        prof.export_chrome_trace(trace)
-        log(LOG_NOTICE, f"profile written to {trace}")
+        path = write_profile(prof, args.profile)
+        log(LOG_NOTICE, f"profile written to {path}")
     else:
         app.run(max_seconds=args.max_seconds)
     # only remove a pidfile this process actually wrote (a foreground run
