@@ -626,8 +626,13 @@ class Pipeline:
         self.fetched_bytes = 0  # device-to-host bytes of every chunk dispatched
         self._warm_threads: list = []  # background kernel builds (joined in close())
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-        # reused dense reconstruction buffers for active-gather mode (see
-        # _to_host); yielded audio/iq are valid until the NEXT block
+        # reused buffers of active-gather mode (see _to_host): one block's
+        # fetched slots restored slot-major [S, W] (and their integer
+        # copy), and the channel-major dense [C, W] audio / [C, W, 2] iq
+        # they are copied into; yielded audio/iq are views of these, valid
+        # until the NEXT block
+        self._slot_rows: np.ndarray | None = None
+        self._slot_ints: np.ndarray | None = None
         self._dense_audio: np.ndarray | None = None
         self._dense_dirty: np.ndarray = np.zeros(0, np.int64)
         self._dense_iq: np.ndarray | None = None
@@ -950,8 +955,11 @@ class Pipeline:
     def _to_host(self, item) -> Iterator[dict]:
         """Fetch one in-flight chunk and unpack it into per-block dicts with
         the same keys pipeline_block returns.  In active-gather mode
-        (cfg.active_slots > 0) the dense [W, C] audio/iq are reconstructed by
-        scattering the fetched open-channel slots over silence; slot overflow
+        (cfg.active_slots > 0) each block's valid slots are restored to
+        float32 as the rows of a slot-major buffer (``_dequant_slots``) and
+        copied, a row a slot, into a reused channel-major [C, W] buffer over
+        silence: the yielded ``audio`` is that buffer's [W, C] view, and
+        ``iq_out`` the [W, C, 2] view of a [C, W, 2] one.  Slot overflow
         (more open channels than slots) is counted in
         ``gather_overflow_count`` and the overflowed channels stay silent for
         the block.  Every span closes before a yield, so none holds the
@@ -960,52 +968,82 @@ class Pipeline:
         with trace.span("pipeline.copy_wait", b0):
             if landed is not None:
                 landed.synchronize()
-        with trace.span("pipeline.dequant", b0):
-            host = {key: v.numpy() for key, v in host.items()}
-            if host["audio"].dtype == np.int16:  # i16 fetch -> restore float
-                host["audio"] = host["audio"].astype(np.float32) * (1.0 / 32767.0)
-            elif host["audio"].dtype == np.int8:  # block-float fetch -> restore
-                host["audio"] = host["audio"].astype(np.float32) * host["audio_scale"][:, None, :]
+        host = {key: v.numpy() for key, v in host.items()}
+        gather = "slot_channel" in host
+        if not gather:
+            with trace.span("pipeline.dequant", b0):
+                if host["audio"].dtype == np.int16:  # i16 fetch -> restore float
+                    host["audio"] = host["audio"].astype(np.float32) * (1.0 / 32767.0)
+                elif host["audio"].dtype == np.int8:  # block-float fetch -> restore
+                    host["audio"] = host["audio"].astype(np.float32) * host["audio_scale"][:, None, :]
         for i in range(k):
+            rows = None
+            if gather:
+                with trace.span("pipeline.dequant", b0 + i):
+                    rows = self._dequant_slots(host, i)
             with trace.span("pipeline.scatter", b0 + i):
-                out = self._unpack_block(host, i, b0 + i)
+                out = self._unpack_block(host, i, b0 + i, rows)
             self.last_yielded = b0 + i
             yield out
 
-    def _unpack_block(self, host: dict, i: int, block: int) -> dict:
-        """Block ``i`` of a fetched chunk as the dict ``_to_host`` yields."""
+    def _dequant_slots(self, host: dict, i: int) -> np.ndarray:
+        """Block ``i``'s valid slots restored to float32, transposed into the
+        reused slot-major buffer: [n, W], a row a slot.  The valid slots are
+        a prefix (``select_slots`` sorts them first).  Each format keeps the
+        product of the dense fetch's restore: i8bf mantissas times their
+        slot's scale, i16 times 1/32767, f32 as fetched."""
+        a = host["audio"][i]  # [W, S]
+        n = int(np.count_nonzero(host["slot_channel"][i] >= 0))
+        shape = a.shape[::-1]
+        if self._slot_rows is None or self._slot_rows.shape != shape:
+            self._slot_rows = np.empty(shape, np.float32)
+        rows = self._slot_rows[:n]
+        if a.dtype == np.float32:
+            rows[...] = a[:, :n].T
+            return rows
+        # transpose the narrow integers, then restore them in one pass
+        if self._slot_ints is None or self._slot_ints.shape != shape or self._slot_ints.dtype != a.dtype:
+            self._slot_ints = np.empty(shape, a.dtype)
+        ints = self._slot_ints[:n]
+        ints[...] = a[:, :n].T
+        scale = host["audio_scale"][i][:n, None] if a.dtype == np.int8 else np.float32(1.0 / 32767.0)
+        np.multiply(ints, scale, out=rows, dtype=np.float32)
+        return rows
+
+    def _unpack_block(self, host: dict, i: int, block: int, rows: np.ndarray | None = None) -> dict:
+        """Block ``i`` of a fetched chunk as the dict ``_to_host`` yields;
+        in active-gather mode ``rows`` are its restored valid slots."""
         out = dict(active=host["active"][i])
         if "slot_channel" in host:
-            idx = host["slot_channel"][i]
-            valid = idx >= 0
-            # the dense [W, C] buffer is REUSED between blocks (yielded
+            cols = host["slot_channel"][i][: len(rows)]
+            # the dense [C, W] buffer is REUSED between blocks (yielded
             # audio is valid until the next block is yielded): re-zeroing
-            # only the previously scattered columns moves far less memory
-            # than a fresh buffer a block
+            # only the previously written rows moves far less memory than a
+            # fresh buffer a block
             audio = self._dense_audio
-            if audio is None or audio.shape != (self.W, self.C):
-                audio = self._dense_audio = np.zeros((self.W, self.C), np.float32)
+            if audio is None or audio.shape != (self.C, self.W):
+                audio = self._dense_audio = np.zeros((self.C, self.W), np.float32)
             else:
-                audio[:, self._dense_dirty] = 0.0
-            cols = idx[valid]
-            audio[:, cols] = host["audio"][i][:, valid]
+                audio[self._dense_dirty] = 0.0
+            audio[cols] = rows
             self._dense_dirty = cols
+            trace.count("pipeline.unpacked_rows", len(cols))
             if self.cfg.suppress_fade_tails:
                 with trace.span("pipeline.fade", block):
                     self._fade_tails(audio, cols)
-            out["audio"] = audio
-            dropped = int(host["n_active"][i]) - int(valid.sum())
+            out["audio"] = audio.T
+            dropped = int(host["n_active"][i]) - len(cols)
             out["gather_overflow"] = max(0, dropped)
             self.gather_overflow_count += out["gather_overflow"]
             if "iq_out" in host:
                 iq = self._dense_iq
-                if iq is None or iq.shape != (self.W, self.C, 2):
-                    iq = self._dense_iq = np.zeros((self.W, self.C, 2), np.float32)
+                if iq is None or iq.shape != (self.C, self.W, 2):
+                    iq = self._dense_iq = np.zeros((self.C, self.W, 2), np.float32)
                 else:
-                    iq[:, self._dense_iq_dirty] = 0.0
-                iq[:, cols] = host["iq_out"][i][:, valid]
+                    iq[self._dense_iq_dirty] = 0.0
+                iq[cols] = host["iq_out"][i][:, : len(cols)].transpose(1, 0, 2)
                 self._dense_iq_dirty = cols
-                out["iq_out"] = iq
+                out["iq_out"] = iq.transpose(1, 0, 2)
         else:
             out["audio"] = host["audio"][i]
             if "iq_out" in host:
@@ -1028,7 +1066,8 @@ class Pipeline:
 
     def _fade_tails(self, audio: np.ndarray, cols: np.ndarray) -> None:
         """Synthesize the fade tails the device did not ship (cfg.suppress_fade_tails)
-        into the dense block ``audio``, whose shipped columns are ``cols``."""
+        into the channel-major dense block ``audio`` [C, W], whose shipped
+        rows are ``cols``."""
         A = self.A
         if self._tail_startup:
             # block 0: every unshipped channel carries the
@@ -1037,7 +1076,7 @@ class Pipeline:
             mask = np.ones(self.C, bool)
             mask[cols] = False
             synth = np.flatnonzero(mask)
-            audio[:A, synth] = np.float32(0.5)
+            audio[synth, :A] = np.float32(0.5)
             self._tail_startup = False
         else:
             synth = np.flatnonzero(self._tail_pending)
@@ -1048,10 +1087,10 @@ class Pipeline:
                 # from the channel's last shipped sample; like the
                 # JAX package, also for a still-open channel the
                 # slots dropped (reference behaviour, ROADMAP H4)
-                audio[: A - 1, synth] = self._tail_pending[synth][None, :] * self._pow94[:, None]
+                audio[synth, : A - 1] = self._tail_pending[synth][:, None] * self._pow94[None, :]
         self._tail_pending[:] = 0.0
         if len(cols):
-            self._tail_pending[cols] = audio[-1, cols]
+            self._tail_pending[cols] = audio[cols, -1]
         if len(synth):
             self._dense_dirty = np.concatenate([cols, synth])
 
@@ -1066,8 +1105,9 @@ class Pipeline:
         :meth:`flush` at stream end to drain.
 
         In active-gather mode (cfg.active_slots > 0) the yielded dense
-        ``audio``/``iq_out`` arrays are REUSED between blocks — they are
-        valid until the next block is yielded; copy if retained."""
+        ``audio`` [W, C] and ``iq_out`` [W, C, 2] are views of channel-major
+        buffers REUSED between blocks — they are valid until the next block
+        is yielded; copy if retained."""
         self._ingest(raw)
 
         if not self._primed:

@@ -287,3 +287,128 @@ def test_warm_does_not_change_results():
     for a, b in zip(base, outs):
         np.testing.assert_array_equal(a["audio"], b["audio"])
         np.testing.assert_array_equal(a["active"], b["active"])
+
+
+class ColumnScatter:
+    """The plain reference of the active-gather unpack: the row-major
+    column scatter ``Pipeline._to_host`` ran before its channel-major one.
+    A chunk's audio is restored whole, each block's valid slot columns are
+    scattered into a reused [W, C] buffer, and the fade tails are written
+    as columns."""
+
+    def __init__(self, C, W, A, suppress):
+        self.A, self.suppress = A, suppress
+        self.audio = np.zeros((W, C), np.float32)
+        self.iq = np.zeros((W, C, 2), np.float32)
+        self.dirty = self.iq_dirty = np.zeros(0, np.int64)
+        self.pending = np.zeros(C, np.float32)
+        self.startup = True
+        self.pow94 = np.power(np.float32(0.94), np.arange(1, A, dtype=np.float32))
+
+    def chunk(self, host):
+        host = dict(host)
+        if host["audio"].dtype == np.int16:
+            host["audio"] = host["audio"].astype(np.float32) * (1.0 / 32767.0)
+        elif host["audio"].dtype == np.int8:
+            host["audio"] = host["audio"].astype(np.float32) * host["audio_scale"][:, None, :]
+        for i in range(len(host["slot_channel"])):
+            idx = host["slot_channel"][i]
+            valid = idx >= 0
+            cols = idx[valid]
+            self.audio[:, self.dirty] = 0.0
+            self.audio[:, cols] = host["audio"][i][:, valid]
+            self.dirty = cols
+            if self.suppress:
+                self.fade(cols)
+            self.iq[:, self.iq_dirty] = 0.0
+            self.iq[:, cols] = host["iq_out"][i][:, valid]
+            self.iq_dirty = cols
+            yield dict(audio=self.audio, iq_out=self.iq,
+                       gather_overflow=max(0, int(host["n_active"][i]) - int(valid.sum())))
+
+    def fade(self, cols):
+        A, audio = self.A, self.audio
+        if self.startup:
+            mask = np.ones(audio.shape[1], bool)
+            mask[cols] = False
+            synth = np.flatnonzero(mask)
+            audio[:A, synth] = np.float32(0.5)
+            self.startup = False
+        else:
+            synth = np.flatnonzero(self.pending)
+            if len(synth):
+                synth = synth[~np.isin(synth, cols, assume_unique=False)]
+            if len(synth):
+                audio[: A - 1, synth] = self.pending[synth][None, :] * self.pow94[:, None]
+        self.pending[:] = 0.0
+        if len(cols):
+            self.pending[cols] = audio[-1, cols]
+        if len(synth):
+            self.dirty = np.concatenate([cols, synth])
+
+
+def _fetched_chunk(rng, C, W, K, S, fmt):
+    """One chunk as the active-gather fetch holds it: each block wants a
+    random set of channels, the first S of them (in a random order) hold
+    the valid slot prefix, and the empty slots are zeros with scale 0."""
+    audio = np.zeros((K, W, S), {"i8bf": np.int8, "i16": np.int16, "f32": np.float32}[fmt])
+    scale = np.zeros((K, S), np.float32)
+    iq = np.zeros((K, W, S, 2), np.float32)
+    slot_channel = np.full((K, S), -1, np.int32)
+    active = np.zeros((K, C), bool)
+    n_active = np.zeros(K, np.int32)
+    for i in range(K):
+        wanted = rng.permutation(rng.choice(C, size=int(rng.integers(1, C // 3)), replace=False))
+        active[i, wanted] = True
+        n_active[i] = len(wanted)
+        n = min(S, len(wanted))
+        slot_channel[i, :n] = wanted[:n]
+        if fmt == "f32":
+            audio[i, :, :n] = rng.normal(0.0, 0.3, (W, n))
+        else:
+            top = 127 if fmt == "i8bf" else 32767
+            audio[i, :, :n] = rng.integers(-top, top + 1, (W, n))
+            scale[i, :n] = rng.uniform(1e-3, 1.0 / 127.0, n)
+        iq[i, :, :n] = rng.normal(0.0, 0.3, (W, n, 2))
+    host = dict(audio=audio, slot_channel=slot_channel, n_active=n_active, active=active, iq_out=iq,
+                meta_f=np.zeros((K, 3, C), np.float32), meta_i=np.zeros((K, 5, C), np.int32))
+    if fmt == "i8bf":
+        host["audio_scale"] = scale
+    return host
+
+
+@pytest.mark.parametrize("slots", ["plentiful", "scarce"])
+@pytest.mark.parametrize("suppress", [True, False], ids=["suppress", "ship_tails"])
+@pytest.mark.parametrize("fmt", ["i8bf", "i16", "f32"])
+def test_channel_major_unpack_matches_column_scatter(fmt, suppress, slots):
+    """The channel-major unpack yields, bit for bit, what the row-major
+    column scatter yields: every block's audio and iq, its overflow and the
+    fade tails carried to the next block, over a stream whose open set
+    changes every block and whose slot count changes between chunks (a
+    fetch-economy rung).  With scarce slots, open channels the slots drop
+    get the fade synthesis (ROADMAP H4)."""
+    C, K = 48, 3
+    specs = [ChannelSpec(frequency=CENTER - 600_000 + 25_000 * j, modulation="am") for j in range(C)]
+    p = Pipeline(_config(K, 0, slots=4, fmt=fmt, suppress=suppress), specs)
+    ref = ColumnScatter(C, p.W, p.A, suppress)
+    rng = np.random.default_rng(16)
+    blocks = synth_on_dropped = 0
+    for c, S in enumerate((20, 20, 24) if slots == "plentiful" else (4, 4, 6)):
+        host = _fetched_chunk(rng, C, p.W, K, S, fmt)
+        item = (K, c * K, ({k: torch.from_numpy(v) for k, v in host.items()}, None, None))
+        for i, (got, want) in enumerate(zip(p._to_host(item), ref.chunk(host), strict=True)):
+            assert got["audio"].shape == (p.W, C) and got["iq_out"].shape == (p.W, C, 2)
+            for key in ("audio", "iq_out"):
+                np.testing.assert_array_equal(np.ascontiguousarray(got[key]).view(np.uint32),
+                                              want[key].view(np.uint32), err_msg=f"block {blocks} {key}")
+            assert got["gather_overflow"] == want["gather_overflow"]
+            np.testing.assert_array_equal(p._tail_pending.view(np.uint32), ref.pending.view(np.uint32))
+            dropped = np.setdiff1d(np.flatnonzero(host["active"][i]), host["slot_channel"][i])
+            synth_on_dropped += blocks > 0 and bool(want["audio"][:, dropped].any())
+            blocks += 1
+    assert blocks >= 6
+    if slots == "plentiful":
+        assert p.gather_overflow_count == 0
+    else:
+        assert p.gather_overflow_count > 0
+        assert (synth_on_dropped > 0) == suppress

@@ -80,16 +80,41 @@ def test_pipeline_spans_under_a_profiler():
     assert {r[0] for r in recs} == set(PIPELINE_SPANS)
     chunks = list(range(0, p.blocks_processed, CHUNK))
     for name in ("pipeline.dispatch", "pipeline.stage", "pipeline.launch", "pipeline.fetch_start",
-                 "pipeline.copy_wait", "pipeline.dequant"):
+                 "pipeline.copy_wait"):
         assert [r[5] for r in named(recs, name)] == chunks, name
-    assert [r[5] for r in named(recs, "pipeline.scatter")] == list(range(n)) == list(range(p.blocks_processed))
-    assert [r[5] for r in named(recs, "pipeline.fade")] == list(range(n))
+    # active-gather mode restores each block's slots in a dequant span of its own
+    for name in ("pipeline.dequant", "pipeline.scatter", "pipeline.fade"):
+        assert [r[5] for r in named(recs, name)] == list(range(n)) == list(range(p.blocks_processed)), name
     for r in recs:
         parent = recs[r[4]][0] if r[4] >= 0 else None
         want = {"pipeline.stage": "pipeline.dispatch", "pipeline.launch": "pipeline.dispatch",
                 "pipeline.fetch_start": "pipeline.dispatch", "pipeline.fade": "pipeline.scatter"}.get(r[0])
         assert parent == want, (r, parent)
-    assert trace.counters() == {}
+    assert set(trace.counters()) == {"pipeline.unpacked_rows"}
+
+
+def test_unpacked_rows_count_the_valid_slots():
+    """``pipeline.unpacked_rows`` adds each block's valid slots (the rows
+    restored and copied) under a recording, and nothing without one."""
+    fetched = []
+    start = Pipeline._start_fetch
+
+    def counting(self, outs):
+        fetched.append(int((outs["slot_channel"] >= 0).sum()))
+        return start(self, outs)
+
+    for recording in (True, False):
+        trace.reset()
+        fetched.clear()
+        p = small_pipeline()
+        p._start_fetch = counting.__get__(p)
+        if recording:
+            with cpu_profile():
+                feed(p, scene_u8(secs=1.0))
+            assert trace.counters() == {"pipeline.unpacked_rows": sum(fetched)} and sum(fetched) > 0
+        else:
+            feed(p, scene_u8(secs=1.0))
+            assert "pipeline.unpacked_rows" not in trace.counters() and sum(fetched) > 0
 
 
 def test_parents_nest_and_self_time_is_duration_less_children():
