@@ -1,7 +1,7 @@
 """The comparison that decides ``correct``.
 
 An entry hands over ``cases``: blocks that its timed path produced, each with
-the raw u8 bytes the block read and, for a sample of channels, what the
+the raw bytes the block read and, for a sample of channels, what the
 program produced (audio, open flags, the per-channel snapshots, the state
 after the block and, in the App cell, what the sinks received).
 A case either starts from the stream's beginning (``prime`` holds the
@@ -9,7 +9,10 @@ priming bytes: the reference works out the initial state itself) or follows
 the program from the state the block started from (``state_in``).
 
 The reference (``reference/``) computes the same block for the same channels,
-and ``numbers`` reduces the two to the numbers a cell compares with its
+reading the raw bytes in the configuration's ``sample_format`` (``u8``, the
+RTL-SDR's; ``s8``, a HackRF's through SoapySDR; ``s16``, a USRP's or a
+LimeSDR's; ``f32``) with its ``fullscale`` where it gives one (s16 and f32;
+32768 and 1 by default), and ``numbers`` reduces the two to the numbers a cell compares with its
 limits.  The control (``control_cases``) puts the reference, computed with a
 TF32 channelizer, in the program's place.
 

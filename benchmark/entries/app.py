@@ -1,14 +1,22 @@
 """Entry ``app``: the application, ``app.py::App``, as a user runs it.
 
 The configuration's libconfig text (one ``udp_stream`` sink a channel to
-127.0.0.1) is written to ``TMPDIR`` and loaded by the program; its ``file``
+127.0.0.1; the device's ``sample_format`` and, where the configuration gives
+one, ``fullscale``) is written to ``TMPDIR`` and loaded by the program; its ``file``
 device reads a FIFO there, unpaced, which a thread of the benchmark fills
 with the scene's segment over and over, so nothing of the stream is written
 to disk.  The App runs its own loop (ring -> ``Pipeline.feed`` ->
 ``_handle_block`` -> sinks), served here as ``scripts/bench_app.py`` serves
 it.  The window runs from the end of the first chunk handled to the end of
 the first chunk whose handling starts ``--seconds`` later; ``realtime_x`` is
-the air those blocks hold over that time.
+the air those blocks hold over that time (a per-layer metric: the host's
+pace swings with its neighbours).  ``card_ms.app`` is the card's time a
+block by its own clock: CUDA events on the pipeline's stream before and
+after each ``pipeline_chain`` (every kernel of a chunk's blocks, after its
+input's copy and before its fetch), summed over the chunks dispatched in
+the window, over their blocks.  It holds the waits of the card for the
+chain's launches; a traced run gives the trace's busy time of the same
+chunks beside it (``card_busy_ms``).
 
 Checked: block 0 against the reference from the stream's start; a block
 drawn from the seed and the window's last block, each from the state it
@@ -76,6 +84,7 @@ def config_text(cfg: dict, fifo: str) -> str:
     from benchmark.reference.channel import channel_frequencies, channel_spec
 
     app = cfg["app"]
+    fullscale = f' fullscale = {float(cfg["fullscale"])!r};' if cfg.get("fullscale") is not None else ""
     chans = []
     for i, f in enumerate(channel_frequencies(cfg)):
         spec = channel_spec(cfg, i)
@@ -90,7 +99,7 @@ def config_text(cfg: dict, fifo: str) -> str:
         f"suppress_fade_tails = {str(app['suppress_fade_tails']).lower()};\n"
         f"fetch_meta_per_chunk = {str(app['fetch_meta_per_chunk']).lower()};\n"
         f'devices: ( {{ type = "file"; filepath = "{fifo}"; centerfreq = {cfg["center_freq"]}; '
-        f'sample_rate = {cfg["sample_rate"]}; sample_format = "{cfg["sample_format"]}"; speedup_factor = 0.0; '
+        f'sample_rate = {cfg["sample_rate"]}; sample_format = "{cfg["sample_format"]}";{fullscale} speedup_factor = 0.0; '
         f'channels: ( {", ".join(chans)} ); }} );\n'
     )
 
@@ -114,7 +123,7 @@ def run(ctx) -> None:
     data, W = scene.host, scene.W
     ctx.mark("scene")
     with tempfile.TemporaryDirectory(prefix="bench_app_") as tmp:
-        fifo = os.path.join(tmp, "scene.cu8")
+        fifo = os.path.join(tmp, f"scene.c{cfg['sample_format']}")  # named by format, as captures are: cu8, cs8, cs16, cf32
         os.mkfifo(fifo)
         conf = os.path.join(tmp, "cell.conf")
         with open(conf, "w") as f:
@@ -150,6 +159,23 @@ def run(ctx) -> None:
 
             sink.write = record
 
+        from rtlsdr_airband_tpu_torch.runtime import pipeline as pipeline_mod
+
+        chains: list[tuple[float, int, object, object]] = []  # (host start, blocks, start event, end event)
+        chain = pipeline_mod.pipeline_chain
+
+        def timed_chain(*a, **k):
+            if not ctx.on_card:
+                return chain(*a, **k)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            e0.record()  # on the current stream: the pipeline's own, inside its dispatch
+            out = chain(*a, **k)
+            e1.record()
+            chains.append((t, int(k["k_blocks"]), e0, e1))
+            return out
+
+        pipeline_mod.pipeline_chain = timed_chain
         if ctx.trace:
             ctx.spans.wrap(p, "_dispatch", "dispatch")
             ctx.spans.wrap_generator(p, "_to_host", "rebuild")
@@ -199,6 +225,7 @@ def run(ctx) -> None:
         finally:
             writer.stop()
             app.stop()
+            pipeline_mod.pipeline_chain = chain
             tap.close()
             if ctx.trace:
                 torch.cuda.Event.synchronize = event_sync
@@ -210,6 +237,13 @@ def run(ctx) -> None:
     n = last - first + 1
     ctx.e2e["setup_s"] = ctx.window_start - ctx.t_start
     ctx.e2e["realtime_x"] = n * W / cfg["wave_rate"] / (state["end"] - ctx.window_start)
+    timed = [c for c in chains if ctx.window_start <= c[0] <= state["end"]]
+    if timed:
+        blocks = sum(k for _, k, _, _ in timed)
+        ctx.e2e["card_ms.app"] = sum(e0.elapsed_time(e1) for _, _, e0, e1 in timed) / blocks
+        tr = ctx.trace_result
+        if tr is not None and tr.found and len(timed) > 1:  # the trace's busy time from the first chunk's dispatch to the last's
+            ctx.counters.update(card_busy_ms=tr.busy_between(timed[0][0], timed[-1][0]) / (blocks - timed[-1][1]) * 1e3)
     mid = first + (n // chunk // 2) * chunk - 1  # a chunk's end halfway through the window
     ctx.counters.update(realtime_x_halves=[(mid - first + 1) * W / cfg["wave_rate"] / (stamps[mid] - ctx.window_start),
                                            (last - mid) * W / cfg["wave_rate"] / (stamps[last] - stamps[mid])])

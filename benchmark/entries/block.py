@@ -1,7 +1,8 @@
 """Entry ``block``: the block program, ``models/flagship.py::FlagshipBlock``.
 
 The configuration's channels, grouped by cost class with the user-order
-restore as the program lays them out, decode u8 on the device, channelize
+restore as the program lays them out, decode the configuration's sample
+format (u8, s8, s16 or f32, with its ``fullscale``) on the device, channelize
 with the four float32 GEMMs, demodulate with K1 and assemble.  The scene's
 segment is made on the device in set-up and its blocks are fed in a cycle,
 the state threaded through every block.  Set-up primes the state from the
@@ -34,9 +35,11 @@ def build(ctx, scene):
     from rtlsdr_airband_tpu_torch.ops.window import blackman_harris_7
     from rtlsdr_airband_tpu_torch.refmodel.channel_ref import bin_for_freq
 
-    from benchmark.reference.channel import channel_spec
+    from benchmark.reference.channel import DEFAULT_FULLSCALE, channel_spec
 
     cfg, dev = ctx.config, ctx.device
+    fmt = cfg.get("sample_format", "u8")
+    fullscale = float(cfg.get("fullscale") or DEFAULT_FULLSCALE.get(fmt, 127.5))  # u8 and s8 decode by a fixed rule
     fs, N, wave_rate, center = cfg["sample_rate"], cfg["fft_size"], cfg["wave_rate"], cfg["center_freq"]
     hop, W = scene.hop, scene.W
     specs = [ChannelSpec(**dataclasses.asdict(channel_spec(cfg, i))) for i in range(cfg["channels"]["count"])]
@@ -47,11 +50,13 @@ def build(ctx, scene):
     bins = torch.as_tensor(np.array([bin_for_freq(s.frequency, center, fs, N) for s in specs], np.int32), device=dev)
     window = torch.as_tensor(blackman_harris_7(N), device=dev)
     block = FlagshipBlock(bins, window, params, inv_perm, hop=hop, fft_size=N, n_frames=W, fm_quadri=False,
-                          with_ctcss=any(s.ctcss > 0 for s in specs), with_iq=False, sample_fmt="u8", fullscale=127.5)
+                          with_ctcss=any(s.ctcss > 0 for s in specs), with_iq=False, sample_fmt=fmt, fullscale=fullscale)
     seg = scene.segment
-    ext = torch.cat([seg, seg[: 2 * (scene.block_offset(0) + N)]])
+    # the raw values as decode_raw_iq takes them, 2 a sample: bytes for u8 and s8
+    raw_dtype = {"s16": torch.int16, "f32": torch.float32}.get(fmt, torch.uint8)
+    ext = torch.cat([seg, seg[: scene.bps * (scene.block_offset(0) + N)]]).view(raw_dtype)
     xs = [ext[2 * scene.block_offset(j) : 2 * (scene.block_offset(j) + scene.block_len)] for j in range(ctx.traffic["segment_blocks"])]
-    prime = decode_raw_iq(ext[: 2 * scene.prime_len], "u8", 127.5)
+    prime = decode_raw_iq(ext[: 2 * scene.prime_len], fmt, fullscale)
     mags, iqs = channelize_matmul(prime, bins, window, hop=hop, fft_size=N, n_frames=AGC_EXTRA, taps=(block.taps_re, block.taps_im))
     state0 = init_demod_state(len(specs), mags, iqs)
     return block, xs, state0, inv_perm

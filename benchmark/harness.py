@@ -131,12 +131,28 @@ class Trace:
     ops: dict  # kernel or copy name -> [device seconds, count]
     idle_by_host: dict  # what the host was doing -> idle seconds of the device
     found: bool  # whether the profiler saw any device operation
+    events: list = dataclasses.field(default_factory=list)  # (start, end) device seconds, sorted
+    offset: float = 0.0  # device clock - host clock
+
+    def busy_between(self, h0: float, h1: float) -> float:
+        """Seconds in which an operation ran on the device between the host
+        instants ``h0`` and ``h1`` (perf_counter seconds)."""
+        lo, hi = h0 + self.offset, h1 + self.offset
+        busy, cur_end = 0.0, lo
+        for s, e in self.events:
+            s, e = max(s, cur_end), min(e, hi)
+            if e > s:
+                busy += e - s
+                cur_end = e
+        return busy
 
 
 class Profile:
     """torch.profiler around a window, CUDA activity only.  A marker kernel
     launched right after the start ties the device's clock to the host's, so
-    the device's idle gaps can be named by the host span that covers them."""
+    the device's idle gaps can be named by the host span that covers them.
+    On the CPU (the tests' runs) it records CPU activity only, so the
+    program's recorder records, and its trace has no device operation."""
 
     def __init__(self, device, spans: Spans):
         self.device = device
@@ -147,6 +163,10 @@ class Profile:
         import torch
         from torch.profiler import ProfilerActivity, profile
 
+        if self.device.type != "cuda":
+            self.prof = profile(activities=[ProfilerActivity.CPU])
+            self.prof.start()
+            return
         self.prof = profile(activities=[ProfilerActivity.CUDA])
         self.prof.start()
         torch.cuda.synchronize(self.device)
@@ -160,6 +180,9 @@ class Profile:
         window [t0, t1] (perf_counter seconds)."""
         import torch
 
+        if self.device.type != "cuda":
+            self.prof.stop()
+            return Trace(t1 - t0, 0.0, {}, {}, False)
         torch.cuda.synchronize(self.device)
         self.prof.stop()
         events = []
@@ -202,7 +225,7 @@ class Profile:
                     label = name
                     break
             idle[label] = idle.get(label, 0.0) + (b - a)
-        return Trace(t1 - t0, busy, ops, idle, True)
+        return Trace(t1 - t0, busy, ops, idle, True, [(s, e) for s, e, _ in events[1:]], offset)
 
 
 class Context:
@@ -249,10 +272,10 @@ class Context:
         return make_scene(self.config, self.traffic, self.seed, self.device)
 
     def start_profiler(self) -> None:
-        """In a traced run on the card, start the profiler.  Call it in
-        set-up, while the device is idle: the window's trace is cut out of
-        it later."""
-        if self.trace and self.on_card:
+        """In a traced run, start the profiler (on the CPU, one of CPU
+        activity).  Call it in set-up, while the device is idle: the window's
+        trace is cut out of it later."""
+        if self.trace:
             self._profile = Profile(self.device, self.spans)
             self._profile.start()
 

@@ -1,11 +1,11 @@
-"""The reference's block: u8 decode, channelizer, demod and the sinks' wire format.
+"""The reference's block: sample decode, channelizer, demod and the sinks' wire format.
 
 Plain NumPy and PyTorch on the CPU, for a sample of channels.  Everything the
 program derives in its set-up (channel specs, bins, taps, parameters, the
 priming state) is worked out here again from the configuration file and the
-raw u8 bytes.  The channelizer is the windowed DFT at each channel's bin,
-computed in float64 and rounded once to float32; the demod is the frozen
-plain version in ``demod.py``.
+raw bytes in its ``sample_format``.  The channelizer is the windowed DFT at
+each channel's bin, computed in float64 and rounded once to float32; the
+demod is the frozen plain version in ``demod.py``.
 
 ``precision="tf32"`` is the control: the channelizer's inputs rounded to
 TF32 (a 10-bit mantissa, as the tensor cores read float32 operands when
@@ -51,9 +51,34 @@ def channel_spec(cfg: dict, i: int) -> ChannelSpec:
     return ChannelSpec(frequency=int(channel_frequencies(cfg)[i]), **kind)
 
 
+# Bytes of one complex sample (I and Q) in each upstream sample format, and the
+# default full scale of the formats that take one (rtl_airband.cpp:316-324,
+# 402-455): u8 (CU8) is (v - 127.5) / 127.5 and s8 (CS8) v / 128 whatever the
+# full scale; s16 (CS16) and f32 (CF32) are v / fullscale.
+BYTES_PER_SAMPLE = {"u8": 2, "s8": 2, "s16": 4, "f32": 8}
+DEFAULT_FULLSCALE = {"s16": 32768.0, "f32": 1.0}
+
+
 def decode_u8(raw: np.ndarray) -> np.ndarray:
     """Interleaved u8 IQ -> [L, 2] float32, (v - 127.5) / 127.5 rounded once."""
     v = (raw.astype(np.float64) - 127.5) / 127.5
+    return v.astype(np.float32).reshape(-1, 2)
+
+
+def decode(raw: np.ndarray, sample_format: str, fullscale: float | None = None) -> np.ndarray:
+    """Interleaved IQ in ``sample_format``, as raw little-endian bytes ->
+    [L, 2] float32: the level in float64, rounded once."""
+    raw = np.ascontiguousarray(raw, np.uint8)
+    if sample_format == "u8":
+        return decode_u8(raw)
+    if sample_format == "s8":
+        v = raw.view(np.int8).astype(np.float64) / 128.0
+    elif sample_format in DEFAULT_FULLSCALE:
+        dtype = "<i2" if sample_format == "s16" else "<f4"
+        scale = DEFAULT_FULLSCALE[sample_format] if fullscale is None else float(fullscale)
+        v = raw.view(dtype).astype(np.float64) / scale
+    else:
+        raise ValueError(f"unknown sample format {sample_format!r}")
     return v.astype(np.float32).reshape(-1, 2)
 
 
@@ -98,26 +123,28 @@ class Reference:
         self.params = make_channel_params(self.specs, wave_rate=cfg["wave_rate"], sample_rate=self.sample_rate,
                                           center_freq=cfg["center_freq"], fft_size=self.fft_size, device="cpu")
         self.with_ctcss = any(s.ctcss > 0 for s in self.specs)
+        self.sample_format, self.fullscale = cfg.get("sample_format", "u8"), cfg.get("fullscale")
+        self.bps = BYTES_PER_SAMPLE[self.sample_format]
 
     @property
     def prime_bytes(self) -> int:
-        return 2 * ((AGC_EXTRA - 1) * self.hop + self.fft_size)
+        return self.bps * ((AGC_EXTRA - 1) * self.hop + self.fft_size)
 
     @property
     def block_bytes(self) -> int:
-        return 2 * ((self.W - 1) * self.hop + self.fft_size)
+        return self.bps * ((self.W - 1) * self.hop + self.fft_size)
 
     def prime(self, raw: np.ndarray, precision: str = "f64") -> DemodState:
         """The initial state from the stream's first AGC_EXTRA frames."""
-        mags, iqs = channelize(decode_u8(raw[: self.prime_bytes]), self.bins, hop=self.hop, fft_size=self.fft_size,
-                               n_frames=AGC_EXTRA, precision=precision)
+        x = decode(raw[: self.prime_bytes], self.sample_format, self.fullscale)
+        mags, iqs = channelize(x, self.bins, hop=self.hop, fft_size=self.fft_size, n_frames=AGC_EXTRA, precision=precision)
         return init_demod_state(len(self.users), torch.from_numpy(mags), torch.from_numpy(iqs))
 
     def block(self, raw: np.ndarray, state: DemodState, precision: str = "f64"):
         """One block from its raw bytes and the state it starts from:
         (state', audio [W, S], open_flags [W, S], snapshots of state')."""
-        mags, iqs = channelize(decode_u8(raw[: self.block_bytes]), self.bins, hop=self.hop, fft_size=self.fft_size,
-                               n_frames=self.W, precision=precision)
+        x = decode(raw[: self.block_bytes], self.sample_format, self.fullscale)
+        mags, iqs = channelize(x, self.bins, hop=self.hop, fft_size=self.fft_size, n_frames=self.W, precision=precision)
         st, audio, _, flags = demod_block(self.params, state, torch.from_numpy(mags), torch.from_numpy(iqs),
                                           with_ctcss=self.with_ctcss)
         return st, audio.numpy(), flags.numpy(), snapshots(self.params, st)

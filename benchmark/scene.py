@@ -1,9 +1,9 @@
-"""The traffic generator: a segment of air as a u8 IQ stream, made from the seed.
+"""The traffic generator: a segment of air as a raw IQ stream, made from the seed.
 
 One general generator for every cell; a scene file, ``scenes/<name>.json``,
 gives its parameters, and a cell names the scene it runs.  After ``scripts/bench_app.py::build_scene``: complex noise over
-the u8 range, and carriers on a few channels' frequencies that key on after a
-quiet lead-in, their sum kept inside the u8 range.  The segment is ``blocks``
+the full-scale range, and carriers on a few channels' frequencies that key on after a
+quiet lead-in, their sum kept inside that range.  The segment is ``blocks``
 blocks of air long and is cycled, so each carrier keys on again in every
 segment, as transmissions do, and squelches open and close all through a
 window.  A carrier is AM on an AM channel and FM on an NFM channel; on a
@@ -27,6 +27,20 @@ carrier.  The sizes, the carriers' channels and the keying times are the same
 for every seed, so every seed asks for the same work.  Phases are taken from
 integer sample counts modulo the sample rate, so float32 keeps them exact
 over any segment length.
+
+The air is one complex signal z of full scale 1, quantised into the
+configuration's ``sample_format`` (with its ``fullscale`` where it gives
+one), as the upstream devices deliver it, I then Q, little-endian:
+
+- ``u8`` (RTL-SDR, CU8): round(127.5 z + 127.5) in [0, 255];
+- ``s8`` (HackRF through SoapySDR, CS8): round(128 z) in [-128, 127];
+- ``s16`` (USRP, LimeSDR, CS16): round(fullscale z) in [-32768, 32767],
+  fullscale 32768 by default;
+- ``f32`` (CF32): fullscale z, fullscale 1 by default.
+
+Whatever the format, the segment is held as its raw bytes, a flat uint8
+tensor; offsets below count complex samples and turn into bytes by the
+format's ``BYTES_PER_SAMPLE``.
 """
 
 from __future__ import annotations
@@ -36,19 +50,20 @@ import math
 import numpy as np
 import torch
 
-from .reference.channel import channel_frequencies, channel_spec
+from .reference.channel import BYTES_PER_SAMPLE, DEFAULT_FULLSCALE, channel_frequencies, channel_spec
 from .reference.constants import AGC_EXTRA
 
 
 class Scene:
-    """A cycled segment of u8 IQ.  ``segment`` is the interleaved u8 tensor
-    of one segment on the device it was made on; stream byte ``i`` is
-    ``segment[i % len(segment)]``."""
+    """A cycled segment of raw IQ.  ``segment`` is the bytes of one segment
+    (interleaved IQ in the configuration's format) as a uint8 tensor on the
+    device it was made on; stream byte ``i`` is ``segment[i % len(segment)]``."""
 
     def __init__(self, cfg: dict, segment: torch.Tensor, hot: np.ndarray):
         self.cfg = cfg
         self.segment = segment
         self.hot = hot
+        self.bps = BYTES_PER_SAMPLE[cfg.get("sample_format", "u8")]  # bytes a complex sample
         self.hop = int(round(cfg["sample_rate"] / cfg["wave_rate"]))
         self.W = cfg["wave_rate"] // 8
         self.N = cfg["fft_size"]
@@ -80,10 +95,10 @@ class Scene:
         return seg[idx]
 
     def block_bytes(self, k: int) -> np.ndarray:
-        return self.stream_bytes(2 * self.block_offset(k), 2 * self.block_len)
+        return self.stream_bytes(self.bps * self.block_offset(k), self.bps * self.block_len)
 
     def prime_bytes(self) -> np.ndarray:
-        return self.stream_bytes(0, 2 * self.prime_len)
+        return self.stream_bytes(0, self.bps * self.prime_len)
 
 
 def hot_channels(n_channels: int, carriers: int) -> np.ndarray:
@@ -135,5 +150,19 @@ def make_scene(cfg: dict, traffic: dict, seed: int, device) -> Scene:
             amp = ampl * on
         z[:, 0] += amp * torch.cos(ph)
         z[:, 1] += amp * torch.sin(ph)
-    u8 = torch.clamp(torch.round(z * 127.5 + 127.5), 0, 255).to(torch.uint8).reshape(-1)
-    return Scene(cfg, u8, hot)
+    return Scene(cfg, quantise(z, cfg), hot)
+
+
+def quantise(z: torch.Tensor, cfg: dict) -> torch.Tensor:
+    """[n, 2] float32 IQ of full scale 1 -> the stream's bytes in the
+    configuration's sample format, a flat uint8 tensor (little-endian, as
+    the host and the card hold it)."""
+    fmt = cfg.get("sample_format", "u8")
+    if fmt == "u8":
+        return torch.clamp(torch.round(z * 127.5 + 127.5), 0, 255).to(torch.uint8).reshape(-1)
+    if fmt == "s8":
+        q = torch.clamp(torch.round(z * 128.0), -128, 127).to(torch.int8)
+    else:
+        scale = float(cfg.get("fullscale") or DEFAULT_FULLSCALE[fmt])
+        q = z * scale if fmt == "f32" else torch.clamp(torch.round(z * scale), -32768, 32767).to(torch.int16)
+    return q.reshape(-1).view(torch.uint8)

@@ -3,7 +3,11 @@ comparison's control, the faults it has to catch, and the reference held to
 the port's plain path.
 
 Each cell runs through ``harness.run_cell`` with the test-only ``cpu``
-device, K1's host build standing in for the card's kernel."""
+device, K1's host build standing in for the card's kernel: as its
+configuration states it (u8), and in the other upstream sample formats.
+The App in f32 is left out: the program decodes an f32 stream's ring bytes
+on the host by value, not as float32 (``ops/sampleconv.py::decode_iq`` given
+a uint8 array), so that run reads not correct whatever the benchmark does."""
 
 from __future__ import annotations
 
@@ -22,6 +26,20 @@ for _cell in CELLS:
     ENTRIES.setdefault(bt.load(f"workloads/{_cell}.json")["entry"], _cell)
 
 
+def in_formats(cells, formats):
+    """(cell, sample format, full scale) cases: the configuration's own
+    format keeps the cell's name as its id.  s16 runs at a full scale of
+    20000, which the App's configuration text has to carry."""
+    out = []
+    for cell in cells:
+        for fmt in formats:
+            if fmt is None:
+                out.append(pytest.param(cell, None, None, id=cell))
+            elif not (fmt == "f32" and bt.load(f"workloads/{cell}.json")["entry"] == "app"):
+                out.append(pytest.param(cell, fmt, 20000.0 if fmt == "s16" else None, id=f"{cell}-{fmt}"))
+    return out
+
+
 @pytest.fixture(autouse=True)
 def _host_kernel(request):
     if request.node.get_closest_marker("cuda"):
@@ -34,14 +52,16 @@ def _host_kernel(request):
     torch.set_num_threads(threads)
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_cell_runs_on_the_cpu_and_is_correct(cell):
-    rc, res, err = bt.run(cell, seed=2**31 + 17)
+@pytest.mark.parametrize("cell,fmt,fullscale", in_formats(CELLS, (None, "s8", "s16", "f32")))
+def test_cell_runs_on_the_cpu_and_is_correct(cell, fmt, fullscale):
+    rc, res, err = bt.run(cell, seed=2**31 + 17, sample_format=fmt, fullscale=fullscale)
     assert rc == 0, err[-2000:]
     assert res["correct"], res["checks"]
     assert res["device"]["platform"] == "cpu" and res["device"]["kind"] == "cpu"
     assert res["attempted"] > 0 and res["failed"] == 0
-    assert "setup_s" in res["metrics"] and len(res["metrics"]) == 2
+    # on the CPU there is no device trace: the host clock's metrics alone
+    host = {m["name"] for m in harness.cell_metrics(bt.load_bench(), cell, "end_to_end") if m["source"] == "host_clock"}
+    assert "setup_s" in res["metrics"] and set(res["metrics"]) == host
     assert list(res)[-1] == "checks"
     assert err.strip().splitlines()[-1].startswith("check ")
 
@@ -51,8 +71,9 @@ def test_traced_run_reports_host_spans(cell):
     rc, res, err = bt.run(cell, trace=1)
     assert rc == 0, err[-2000:]
     assert res["correct"]
-    # on the CPU there is no device trace: the span metrics alone
-    spans = {m["name"] for m in harness.cell_metrics(bt.load_bench(), cell, "per_layer") if m["source"] == "program_span"}
+    # on the CPU there is no device trace: the span and host clock metrics alone
+    spans = {m["name"] for m in harness.cell_metrics(bt.load_bench(), cell, "per_layer")
+             if m["source"] in ("program_span", "host_clock")}
     assert set(res["metrics"]) == spans
     assert all(v["value"] > 0 for v in res["metrics"].values())
 
@@ -75,12 +96,26 @@ def test_control_fails_where_the_program_passes(cell):
 
 
 @pytest.mark.parametrize("fault", faults.KINDS)
-@pytest.mark.parametrize("cell", list(ENTRIES.values()))
-def test_a_broken_timed_path_is_not_correct(cell, fault):
+@pytest.mark.parametrize("cell,fmt,fullscale", in_formats(ENTRIES.values(), (None, "s8", "s16")))
+def test_a_broken_timed_path_is_not_correct(cell, fmt, fullscale, fault):
     with faults.planted(fault):
-        rc, res, err = bt.run(cell, seed=2**31 + 29)
+        rc, res, err = bt.run(cell, seed=2**31 + 29, sample_format=fmt, fullscale=fullscale)
     assert rc == 0, err[-2000:]
     assert res["correct"] is False, res["checks"]
+
+
+def test_a_reference_told_another_format_is_not_correct():
+    """The format reaches the comparison: an s8 stream's cases pass against
+    a reference told s8 and fail against one told u8."""
+    cell = "mixed8192.block"
+    workload, config, traffic = bt.tiny_files(cell, "s8")
+    ctx = harness.Context(cell, workload, config, traffic, 2**31 + 37, 1.0, False, torch.device("cpu"), harness.process_start())
+    harness.load_module(harness.HERE / "entries" / "block.py", "benchmark_entry_block").run(ctx)
+    limits = workload["check"]["limits"]
+    right = check.compare_cases(config, ctx.cases, limits)
+    wrong = check.compare_cases(dict(config, sample_format="u8"), ctx.cases, limits)
+    assert control.verdict(right, ctx.failed), right
+    assert not control.verdict(wrong, ctx.failed), wrong
 
 
 @pytest.mark.parametrize("cell", list(ENTRIES.values()))

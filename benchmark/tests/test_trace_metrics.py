@@ -114,3 +114,20 @@ def test_readers_read_the_programs_recorder():
         assert reader("copy_wait_ms").read(ctx) is None and reader("scatter_ms").read(ctx) is None
     finally:
         trace.reset()
+
+
+def test_busy_between_is_the_union_of_device_operations_inside_the_interval():
+    """``card_ms.app`` reads ``Trace.busy_between``: overlapping operations
+    count once, and what lies outside the host interval (shifted by the
+    clocks' offset) is cut off."""
+    tr = harness.Trace(10.0, 0.0, {}, {}, True, [(100.0, 101.0), (100.5, 102.0), (103.0, 104.0), (109.0, 112.0)], 100.0)
+    assert tr.busy_between(0.0, 10.0) == pytest.approx(2.0 + 1.0 + 1.0)
+    assert tr.busy_between(0.75, 3.5) == pytest.approx(1.25 + 0.5)
+    assert tr.busy_between(4.0, 9.0) == 0.0
+
+
+def test_realtime_x_app_and_card_busy_ms_read_what_the_entry_measured():
+    assert reader("realtime_x.app").read(SimpleNamespace(e2e={"realtime_x": 5.5})) == 5.5
+    assert reader("realtime_x.app").read(SimpleNamespace(e2e={})) is None
+    assert reader("card_busy_ms").read(SimpleNamespace(counters={"card_busy_ms": 7.08})) == 7.08
+    assert reader("card_busy_ms").read(SimpleNamespace(counters={})) is None  # untraced, or the CPU
