@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .constants import AGC_EXTRA
-from .inputs.base import Input, InputState, input_new
+from .inputs.base import Input, InputState, input_new, make_ring_buffer
 from .logutil import LOG_INFO, LOG_NOTICE, LOG_WARNING, debug_print, log
 from .ops.levels import level_to_dbfs
 from .outputs.dispatch import OutputSet, TagQueue
@@ -46,6 +46,7 @@ from .runtime.pipeline import Pipeline, PipelineConfig
 
 OUTPUT_CHECK_PERIOD_SEC = 10.0  # reference: output_check_thread (output.cpp:936)
 SINK_QUEUE_DEPTH = 4  # blocks buffered per sink worker before overrun
+RING_BLOCKS = 4  # blocks a device's ring holds at least, where its keys ask for less
 
 
 class SinkWorker:
@@ -409,6 +410,14 @@ class App:
 
         rt = DeviceRuntime(cfg=d, input=inp, pipeline=pipeline, channels=chrts, scan=scan, stats=dev_stats)
         rt.bytes_per_block = pipeline._block_need * inp.bytes_per_sample
+        # the service loop reads a whole block from the ring: a wideband
+        # device's block (5 MB at 20 Msps in s8) outgrows the 3.2 MB default
+        if inp.ring.size < RING_BLOCKS * rt.bytes_per_block:
+            inp.ring = make_ring_buffer(RING_BLOCKS * rt.bytes_per_block, inp.ring.extra)
+        if inp.ring.size < rt.bytes_per_block:
+            raise ValueError(
+                f"device {di}: its ring holds {inp.ring.size} B, less than one block of {rt.bytes_per_block} B"
+            )
         rt.indicators = [" "] * len(chrts)
 
         # vectorized fast path for control-free devices: sinks that still
@@ -610,7 +619,8 @@ class App:
         if rt.input.available_bytes() < rt.bytes_per_block:
             return False
         with trace.span("app.service"):
-            raw = rt.input.read_bytes(rt.bytes_per_block)
+            with trace.span("app.ring_read"):
+                raw = rt.input.read_bytes(rt.bytes_per_block)
             t0 = time.perf_counter()
             n_blocks = 0
             for out in rt.pipeline.feed(raw):

@@ -714,6 +714,8 @@ class Pipeline:
             return np.stack([z.real, z.imag], axis=-1).astype(np.float32)
         if isinstance(raw, np.ndarray) and raw.ndim == 2 and raw.shape[1] == 2 and raw.dtype == np.float32:
             return raw
+        if self.cfg.sample_format == "f32" and isinstance(raw, np.ndarray) and raw.dtype == np.uint8:
+            raw = raw.view("<f4")  # a ring's bytes: the values are little-endian float32, not one a byte
         return decode_iq(raw, SampleFormat(self.cfg.sample_format), self.cfg.fullscale)
 
     # -- raw-domain helpers: _pending holds either [L, 2] f32 pairs or the
@@ -1108,7 +1110,9 @@ class Pipeline:
         ``audio`` [W, C] and ``iq_out`` [W, C, 2] are views of channel-major
         buffers REUSED between blocks — they are valid until the next block
         is yielded; copy if retained."""
-        self._ingest(raw)
+        with trace.span("pipeline.ingest"):
+            self._ingest(raw)
+        trace.count("pipeline.ingest_bytes", raw.nbytes if isinstance(raw, np.ndarray) else len(raw))
 
         if not self._primed:
             if self._pending_samples() < self._prime_len:

@@ -21,6 +21,22 @@ new ones are dropped and counted under ``trace.dropped``.
 
 ``--profile DIR`` appends ``chrome_events()`` to the profiler's Chrome
 trace as a process row of its own, "program spans".
+
+The names, a child under its parent:
+
+- ``app.service`` (a pass of ``App._service_device``): ``app.ring_read``
+  (a block's bytes out of the device's ring), then ``Pipeline.feed``'s;
+- ``pipeline.ingest`` (the raw bytes appended to the pending stream, and
+  decoded on the host where they ship as float32 pairs), counter
+  ``pipeline.ingest_bytes`` (the raw bytes each ``feed`` takes);
+- ``pipeline.dispatch``: ``pipeline.stage``, ``pipeline.launch``,
+  ``pipeline.fetch_start``;
+- ``pipeline.copy_wait``, ``pipeline.dequant``, ``pipeline.scatter``
+  (``pipeline.fade``), counter ``pipeline.unpacked_rows``;
+- ``app.handler``: ``app.gather``, ``app.sinks``, counter
+  ``app.open_channels``;
+- set-up: ``setup.app`` (``setup.pipeline``, ``setup.input``),
+  ``setup.warm`` (``setup.library``).
 """
 
 from __future__ import annotations

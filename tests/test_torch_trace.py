@@ -7,6 +7,7 @@ The demod runs as K1's host build, as in the other Pipeline tests.
 """
 
 import json
+import os
 import socket
 import time
 
@@ -25,8 +26,9 @@ from rtlsdr_airband_tpu_torch.runtime.pipeline import Pipeline, PipelineConfig
 from torch_port_common import CENTER, FS, SCENE_SPECS, drive_app, scene_u8, write_am_u8
 
 CHUNK = 2
-PIPELINE_SPANS = ("pipeline.dispatch", "pipeline.stage", "pipeline.launch", "pipeline.fetch_start",
+PIPELINE_SPANS = ("pipeline.ingest", "pipeline.dispatch", "pipeline.stage", "pipeline.launch", "pipeline.fetch_start",
                   "pipeline.copy_wait", "pipeline.dequant", "pipeline.scatter", "pipeline.fade")
+STEP = 400_000  # bytes a feed
 
 
 @pytest.fixture(autouse=True)
@@ -54,7 +56,7 @@ def feed(p: Pipeline, raw: bytes, between=None) -> int:
     """Feed ``raw`` in steps and flush; ``between()`` runs after every
     yielded block.  Returns the blocks yielded."""
     n = 0
-    for gen in [p.feed(raw[i : i + 400_000]) for i in range(0, len(raw), 400_000)] + [p.flush()]:
+    for gen in [p.feed(raw[i : i + STEP]) for i in range(0, len(raw), STEP)] + [p.flush()]:
         for _ in gen:
             n += 1
             if between is not None:
@@ -74,10 +76,12 @@ def test_nothing_records_without_a_profiler():
 
 def test_pipeline_spans_under_a_profiler():
     p = small_pipeline()
+    raw = scene_u8(secs=1.0)
     with cpu_profile():
-        n = feed(p, scene_u8(secs=1.0))
+        n = feed(p, raw)
     recs = trace.records()
     assert {r[0] for r in recs} == set(PIPELINE_SPANS)
+    assert len(named(recs, "pipeline.ingest")) == -(-len(raw) // STEP)  # one a feed
     chunks = list(range(0, p.blocks_processed, CHUNK))
     for name in ("pipeline.dispatch", "pipeline.stage", "pipeline.launch", "pipeline.fetch_start",
                  "pipeline.copy_wait"):
@@ -90,7 +94,8 @@ def test_pipeline_spans_under_a_profiler():
         want = {"pipeline.stage": "pipeline.dispatch", "pipeline.launch": "pipeline.dispatch",
                 "pipeline.fetch_start": "pipeline.dispatch", "pipeline.fade": "pipeline.scatter"}.get(r[0])
         assert parent == want, (r, parent)
-    assert set(trace.counters()) == {"pipeline.unpacked_rows"}
+    assert set(trace.counters()) == {"pipeline.unpacked_rows", "pipeline.ingest_bytes"}
+    assert trace.counters()["pipeline.ingest_bytes"] == len(raw)
 
 
 def test_unpacked_rows_count_the_valid_slots():
@@ -111,7 +116,7 @@ def test_unpacked_rows_count_the_valid_slots():
         if recording:
             with cpu_profile():
                 feed(p, scene_u8(secs=1.0))
-            assert trace.counters() == {"pipeline.unpacked_rows": sum(fetched)} and sum(fetched) > 0
+            assert trace.counters()["pipeline.unpacked_rows"] == sum(fetched) and sum(fetched) > 0
         else:
             feed(p, scene_u8(secs=1.0))
             assert "pipeline.unpacked_rows" not in trace.counters() and sum(fetched) > 0
@@ -197,6 +202,48 @@ def test_app_fast_path_records_a_handler_a_block(tmp_path, udp_port):
         assert [recs[r[4]][0] for r in named(recs, name)] == ["app.handler"] * len(handlers), name
     # a pass of the service loop holds its blocks' handling (stop()'s drain runs outside one)
     assert any(r[4] >= 0 for r in handlers) and all(r[4] < 0 or recs[r[4]][0] == "app.service" for r in handlers)
+
+
+def test_app_input_spans_and_bytes_under_a_profiler(tmp_path, udp_port):
+    """A pass of the service loop reads a block's bytes from the ring under
+    ``app.ring_read``, and ``Pipeline.feed`` appends them under
+    ``pipeline.ingest``, both inside ``app.service``; ``pipeline.ingest_bytes``
+    adds up every byte read from the ring (the stream's tail too)."""
+    iq = tmp_path / "iq.bin"
+    write_am_u8(iq, secs=1.5, gate=(0.2, 0.75))
+    app = App(loads_config(udp_sink_config(iq, udp_port)), device="cpu")
+    rt = app.devices[0]
+    reads = []
+    read = rt.input.read_bytes
+
+    def counted(n):
+        out = read(n)
+        reads.append(0 if out is None else out.nbytes)
+        return out
+
+    rt.input.read_bytes = counted
+    with cpu_profile():
+        drive_app(app)
+    recs = trace.records()
+    ring_reads, ingests = named(recs, "app.ring_read"), named(recs, "pipeline.ingest")
+    assert len(ring_reads) >= 2 and all(recs[r[4]][0] == "app.service" for r in ring_reads)
+    assert all(r[4] < 0 or recs[r[4]][0] == "app.service" for r in ingests)
+    assert len(ingests) == len(reads) and sum(r[4] >= 0 for r in ingests) == len(ring_reads)
+    assert trace.counters()["pipeline.ingest_bytes"] == sum(reads) == os.path.getsize(iq)
+
+
+def test_recorded_names_are_in_the_recorders_list(tmp_path, udp_port):
+    """Every span and counter the App and its Pipeline record is in the list
+    of names in ``runtime/trace.py``'s docstring."""
+    iq = tmp_path / "iq.bin"
+    write_am_u8(iq, secs=1.5, gate=(0.2, 0.75))
+    with cpu_profile():
+        app = App(loads_config(udp_sink_config(iq, udp_port)), device="cpu")
+        app.devices[0].pipeline.warm()
+        drive_app(app)
+    names = {r[0] for r in trace.records()} | set(trace.counters())
+    assert {"app.ring_read", "pipeline.ingest", "pipeline.ingest_bytes", "setup.app"} <= names
+    assert [n for n in sorted(names) if f"``{n}``" not in trace.__doc__] == []
 
 
 def test_set_up_spans_record_without_a_profiler(tmp_path, udp_port):
