@@ -27,8 +27,11 @@ package.  Phases, each fatal on failure:
    widths, the first (device-memory) design of K1 and K1's schedules (unroll
    2 and 4, pair at unroll 1, 2 and 4), each with and without the CTCSS
    banks, all equal bit for bit; the plain demod on the last
-   block; K1's bytes bound and issue bound; a torch.profiler view of the K
-   blocks by kernel;
+   block; K1's bytes bound and issue bound; the fade-tail kernel (one
+   launch a K1 launch) on the last block's assembly inputs at 8192 and
+   2280 channels, bit for bit against the plain assembly, alone and plain
+   timed, with its bytes bound; a torch.profiler view of the K blocks by
+   kernel;
 6. chain probe K2: the probe's own entry point (bench_chain_probe.main, its
    full W = 2000, L = 40, K = 4, REPS = 5) with its launch counter at 0, for
    the three kinds; then on one block of its inputs per kind the kernel
@@ -116,7 +119,8 @@ package.  Phases, each fatal on failure:
     (c) the three drivers through their main(): bench_pair at 8192 and 512
         channels, bench_unroll at 512 and 8192, bench_bf16 at 8192 (float32
         must clear its 80 dB gate; the other precisions are evidence);
-12. the kernels line, the JSON kernels line (K1's schedules in K1's entry),
+12. the kernels line, the JSON kernels line (K1's schedules in K1's entry;
+    K2; the fade-tail kernel),
     the card line and the result.
 """
 
@@ -156,6 +160,7 @@ SWEEP_COUNTS = (512, 2048, 8192, 16384)  # phase 10's channel sweep
 SOAK_CHANNELS = 2048
 SCHEDULES = ((2, False), (4, False), (1, True), (2, True), (4, True))  # K1's, besides the default (unroll, pair)
 SCHEDULE_COUNTS = (512, C_FLAGSHIP)  # phase 11's driver channel counts
+FADE_CHANNELS = (C_FLAGSHIP, 2280)  # the fade-tail kernel's timed widths: the flagship's and vhf2280's
 PAIR_STREAM_BLOCKS = 4
 
 
@@ -470,13 +475,23 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
             outs.append(out)
         return st, outs
 
-    states_in = []
-    demod_cuda.LAUNCHES = 0
-    _, outs = run_chain(states_in)
+    states_in, fade_in = [], []
+    assemble = demod_cuda.fade_and_tail
+
+    def recording(tail, raw, flags):  # keeps the last block's assembly inputs for fade_tail_timings
+        fade_in[:] = [v.clone() for v in (tail, raw, flags)]
+        return assemble(tail, raw, flags)
+
+    demod_cuda.LAUNCHES = demod_cuda.FADE_LAUNCHES = 0
+    demod_cuda.fade_and_tail = recording
+    try:
+        _, outs = run_chain(states_in)
+    finally:
+        demod_cuda.fade_and_tail = assemble
     torch.cuda.synchronize()
-    launches = demod_cuda.LAUNCHES
-    if launches != K_BLOCKS:
-        raise AssertionError(f"main path launched K1 {launches} times for {K_BLOCKS} blocks")
+    launches, fade_launches = demod_cuda.LAUNCHES, demod_cuda.FADE_LAUNCHES
+    if launches != K_BLOCKS or fade_launches != K_BLOCKS:
+        raise AssertionError(f"main path launched K1 {launches} times and the fade-tail kernel {fade_launches} times for {K_BLOCKS} blocks")
     for k, out in enumerate(outs):
         if tuple(out["audio"].shape) != (W, C_FLAGSHIP) or not bool(torch.isfinite(out["audio"]).all()):
             raise AssertionError(f"main path block {k}: audio not finite or misshapen")
@@ -484,7 +499,8 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
             if not bool(torch.isfinite(out[key]).all()):
                 raise AssertionError(f"main path block {k}: {key} not finite")
     active = [int(out["active"].sum().item()) for out in outs]
-    log(f"main path: {K_BLOCKS} blocks, K1 launches {launches}, outputs finite, channels active per block {active}")
+    log(f"main path: {K_BLOCKS} blocks, K1 launches {launches}, fade-tail launches {fade_launches}, outputs finite, "
+        f"channels active per block {active}")
 
     # ---- timings, on the main path's own blocks and states ----
     block_ms = time_ms(run_chain, reps=3) / K_BLOCKS
@@ -512,6 +528,7 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
     plain_ms = time_ms(lambda: demod_block(params, states_in[-1], last_mags, last_iqs), reps=1, warmup=0)
     bound_ms, bound_by, how = demod_bound(params, states_in[-1], last_mags)
     issue_ms = W * step_instructions / (clock_mhz * 1e3) if step_instructions else None
+    fade = fade_tail_timings(*fade_in, card)
     t = dict(
         block_ms=block_ms,
         channel_msps=C_FLAGSHIP * W * hop / block_s / 1e6,
@@ -526,6 +543,8 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
         bound_by=bound_by,
         issue_bound_ms=issue_ms,
         launches=launches,
+        fade_launches=fade_launches,
+        fade=fade,
         flagship=(block, x, state0),
         schedule_ms={demod_cuda.schedule_name(u, p): mean[demod_cuda.schedule_name(u, p), True] for u, p in SCHEDULES},
         schedule_no_ctcss_ms={demod_cuda.schedule_name(u, p): mean[demod_cuda.schedule_name(u, p), False] for u, p in SCHEDULES},
@@ -556,6 +575,46 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
         f"plain_demod_ms {plain_ms:.1f} k1_bound_ms {bound_ms:.4f}"
     )
     return t
+
+
+def fade_tail_timings(tail, raw, flags, card: str) -> dict:
+    """The fade-tail kernel on the main path's last block (K1's audio, flag
+    bytes and carried tail as ``run_with`` handed them over), at each width
+    of FADE_CHANNELS (the block's first C channels): its outputs against the
+    plain assembly's with the flag decode, bit for bit; the kernel alone
+    (CUDA events right around its launch, min of 20) and the plain version
+    (min of 5); its bytes bound 10 W C + 8 A C at HBM_BYTES_PER_S.  Keyed by
+    C; not counted in FADE_LAUNCHES."""
+    import torch
+
+    from rtlsdr_airband_tpu_torch.ops import demod_cuda
+    from rtlsdr_airband_tpu_torch.ops.demod import apply_fade_and_tail
+
+    def bits(v):
+        return v.view(torch.int32) if v.is_floating_point() else v
+
+    lib = demod_cuda.fade_library()
+    r = {}
+    for C in FADE_CHANNELS:
+        tl, rw, fl = (v[:, :C].contiguous() for v in (tail, raw, flags))
+        A, W = tl.shape[0], rw.shape[0]
+        *got, args = demod_cuda._fade_tail_args(lib, tl, rw, fl)
+
+        def plain():
+            return (*apply_fade_and_tail(tl, rw, (fl & 2) != 0), (fl & 1) != 0)
+
+        ms = time_ms(lambda: demod_cuda.launch_fade_tail(lib, args), reps=20)
+        plain_ms = time_ms(plain, reps=5)
+        want = plain()
+        if not all(torch.equal(bits(g), bits(w)) for g, w in zip(got, want)):
+            raise AssertionError(f"fade-tail kernel at (W, C) = ({W}, {C}): audio, new tail or open flags differ from the plain assembly")
+        marks = int(((fl & 2) != 0).sum())
+        bound_ms = (10 * W * C + 8 * A * C) / HBM_BYTES_PER_S * 1e3
+        r[C] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, marks=marks)
+        log(f"fade-tail kernel at (W, C, A) = ({W}, {C}, {A}) [{card}]: {ms:.4f} ms alone, plain assembly {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms (bytes: 10 W C + 8 A C = {10 * W * C + 8 * A * C} B); {marks} close marks, "
+            f"audio, new tail and open flags equal bit for bit")
+    return r
 
 
 def profile_chain(run_chain, card: str) -> None:
@@ -1779,7 +1838,9 @@ def main() -> int:
         f"(max |diff| {p['err']}), latency bound {p['latency_bound_ms']:.6f} ms; K1 on the mesh: {mesh_launches} launches "
         f"({mb['shards']} a block at {mb['widths']} channels), {mb['shard_ms']:.4f} ms at {mb['widths'][0]} channels (mean of the shards); "
         f"K1 in the drivers: {dr['launches']} launches; K1's pair schedule {sc['pair_stream_launches']} launches on the "
-        f"stream with {PAIR_STREAM_BLOCKS} blocks, every schedule bit for bit")
+        f"stream with {PAIR_STREAM_BLOCKS} blocks, every schedule bit for bit; fade-tail (csrc/fade_tail.cu) launches "
+        f"{t['fade_launches']} on the main path, bit for bit against the plain assembly, " + ", ".join(
+            f"{f['ms']:.4f} ms alone at {C} channels (plain {f['plain_ms']:.4f}, bound {f['bound_ms']:.4f})" for C, f in t["fade"].items()))
     log(json.dumps({"kernels": [{
         "name": "demod",
         "route": "cuda",
@@ -1813,6 +1874,19 @@ def main() -> int:
         "bound_ms": p["bound_ms"],
         "bound_by": p["bound_by"],
         "latency_bound_ms": p["latency_bound_ms"],
+        "library_ms": None,
+    }, {
+        "name": "fade_tail",
+        "route": "cuda",
+        "source": "rtlsdr_airband_tpu_torch/csrc/fade_tail.cu",
+        "replaces": "rtlsdr_airband_tpu/ops/demod.py:479 (XLA, no Pallas kernel)",
+        "launches": t["fade_launches"],
+        "max_abs_err": 0.0,
+        "ms": t["fade"][C_FLAGSHIP]["ms"],
+        "plain_ms": t["fade"][C_FLAGSHIP]["plain_ms"],
+        "bound_ms": t["fade"][C_FLAGSHIP]["bound_ms"],
+        "bound_by": "bytes",
+        "by_channels": {str(C): f for C, f in t["fade"].items()},
         "library_ms": None,
     }]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

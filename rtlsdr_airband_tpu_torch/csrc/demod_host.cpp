@@ -1,13 +1,15 @@
 // Host build of the demod kernel's code (demod_step.cuh, demod_tiles.cuh),
-// one channel after another.  A test aid: it lets the CPU tests hold the
-// kernel's own arithmetic and index arithmetic against the plain PyTorch
-// version.  Build with
+// one channel after another, and of the fade-tail kernel's (fade_tail.cuh),
+// one channel and row segment after another.  A test aid: it lets the
+// CPU tests hold the kernels' own arithmetic and index arithmetic against
+// the plain PyTorch version.  Build with
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC demod_host.cpp
 // (no contraction to fused multiply-add, as the kernel's --fmad=false).
 
 #include <vector>
 
 #include "demod_tiles.cuh"
+#include "fade_tail.cuh"
 
 namespace {
 
@@ -83,3 +85,19 @@ extern "C" size_t demod_pair_smem_bytes() { return demod::PairLayout::bytes; }
 extern "C" int demod_global_scratch_rows() { return demod::GLOBAL_SCRATCH_ROWS; }
 
 extern "C" const char* demod_arg_names() { return DEMOD_ARG_NAMES; }
+
+// The fade-tail kernel's segments (fade_tail.cu), `seg_rows` rows a segment
+// (any count above 0), segment after segment.  Returns 0, or 1 for a
+// shape it cannot run.
+extern "C" int fade_tail_host(const FadeTailArgs* a, int seg_rows) {
+  if (seg_rows < 1) return 1;
+  const int L = a->A + a->W;
+  for (int m0 = 0; m0 < L; m0 += seg_rows)
+    for (int c = 0; c < a->C; ++c) fade_tail::segment(*a, a->decay, c, m0, m0 + seg_rows < L ? m0 + seg_rows : L);
+  return 0;
+}
+
+// fade_tail::segment_rows for (W, C) on a card of `sms` SMs.
+extern "C" int fade_tail_segment_rows(int W, int C, int A, int sms) { return fade_tail::segment_rows(W, C, A, sms); }
+
+extern "C" const char* fade_tail_arg_names() { return FADE_TAIL_ARG_NAMES; }

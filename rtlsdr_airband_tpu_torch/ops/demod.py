@@ -496,7 +496,9 @@ def apply_fade_and_tail(waveout_tail: torch.Tensor, waveout: torch.Tensor, fade:
     forms (its other terms are zeros).
 
     waveout_tail: [A, C] carried tail; waveout: [W, C]; fade: [W, C] bool.
-    Returns (audio [W, C], new_tail [A, C]).
+    Returns (audio [W, C], new_tail [A, C]).  On the card
+    ``demod_cuda.fade_and_tail`` runs the fade-tail kernel in its place,
+    equal bit for bit; this stays the CPU path and the kernel's oracle.
     """
     W, C = waveout.shape
     A = waveout_tail.shape[0]

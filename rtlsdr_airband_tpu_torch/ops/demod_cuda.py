@@ -29,6 +29,12 @@ so the caller's state is never modified.  ``LAUNCHES`` counts kernel
 launches, so a run can show that its main path went through the kernel;
 ``SCHEDULE_LAUNCHES`` counts them by schedule (``schedule_name``), so a run
 can show which schedule ran.
+
+After K1 the block is assembled by ``fade_and_tail``: the AM close fade
+rewrite, the carried tail and the open flags.  For CUDA tensors it launches
+the fade-tail kernel (``csrc/fade_tail.cu``, built beside K1's library) or
+raises, counted in ``FADE_LAUNCHES``; for CPU tensors it runs the plain
+``ops.demod.apply_fade_and_tail``.
 """
 
 from __future__ import annotations
@@ -42,10 +48,11 @@ import torch
 
 from .. import _build
 from ..constants import AGC_EXTRA
-from .demod import SQ_BUF, ChannelParams, CtcssState, DemodState, apply_fade_and_tail, demod_block
+from .demod import FADE_DECAY, SQ_BUF, ChannelParams, CtcssState, DemodState, _fade_decay, apply_fade_and_tail, demod_block
 from .goertzel import MAX_TONES
 
 LAUNCHES = 0
+FADE_LAUNCHES = 0  # fade-tail kernel launches; the plain assembly never counts
 SCHEDULE_LAUNCHES: collections.Counter = collections.Counter()
 HOST_SCHEDULE = None  # the schedule demod_block_host ran last (a test aid)
 
@@ -109,18 +116,25 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _args_type(lib: ctypes.CDLL) -> type:
-    """ctypes mirror of the C ``DemodArgs``, built from the field names the
-    library reports, so the two cannot disagree on order."""
-    cached = getattr(lib, "_demod_args_type", None)
+def _struct_type(lib: ctypes.CDLL, struct: str, names_fn: str, ints) -> type:
+    """ctypes mirror of the C struct ``struct``, built from the field names
+    the library's ``names_fn`` reports, so the two cannot disagree on order;
+    fields in ``ints`` are int32, the others pointers."""
+    attr = f"_{struct}_type"
+    cached = getattr(lib, attr, None)
     if cached is None:
-        lib.demod_arg_names.restype = ctypes.c_char_p
-        lib.demod_arg_names.argtypes = []
-        names = lib.demod_arg_names().decode().split(",")
-        fields = [(n, ctypes.c_int32 if n in _INT_ARGS else ctypes.c_void_p) for n in names]
-        cached = type("DemodArgs", (ctypes.Structure,), {"_fields_": fields})
-        lib._demod_args_type = cached
+        fn = getattr(lib, names_fn)
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = []
+        fields = [(n, ctypes.c_int32 if n in ints else ctypes.c_void_p) for n in fn().decode().split(",")]
+        cached = type(struct, (ctypes.Structure,), {"_fields_": fields})
+        setattr(lib, attr, cached)
     return cached
+
+
+def _args_type(lib: ctypes.CDLL) -> type:
+    """ctypes mirror of the C ``DemodArgs``."""
+    return _struct_type(lib, "DemodArgs", "demod_arg_names", _INT_ARGS)
 
 
 def run_with(launch, lib, params: ChannelParams, state: DemodState, mags, iqs, fm_quadri, with_ctcss, with_iq):
@@ -163,9 +177,7 @@ def run_with(launch, lib, params: ChannelParams, state: DemodState, mags, iqs, f
     args = Args(**{n: (ints[n] if n in ints else (t[n].data_ptr() if t[n] is not None else None)) for n, _ in Args._fields_})
     launch(args)  # t keeps every buffer alive until the call is queued
 
-    open_now = (flags & 1) != 0
-    fade = (flags & 2) != 0
-    audio, new_tail = apply_fade_and_tail(state.waveout_tail, audio_raw, fade)
+    audio, new_tail, open_now = fade_and_tail(state.waveout_tail, audio_raw, flags)
     bank = lambda b: CtcssState(**{k: out[f"{b}_{k}"] for k in CtcssState._fields})  # noqa: E731
     new_state = DemodState(
         **{f: out[f] for f in DemodState._fields if f not in ("fast", "slow", "iq_tail", "waveout_tail")},
@@ -175,6 +187,77 @@ def run_with(launch, lib, params: ChannelParams, state: DemodState, mags, iqs, f
         waveout_tail=new_tail,
     )
     return new_state, audio, iq_out, open_now
+
+
+def fade_and_tail(waveout_tail: torch.Tensor, waveout: torch.Tensor, flags: torch.Tensor):
+    """The block's assembly after K1: :func:`ops.demod.apply_fade_and_tail`
+    with the close marks and open flags read from K1's flag bytes (bit 0
+    open, bit 1 AM close mark).
+
+    waveout_tail: [A, C] float32; waveout: [W, C] float32 (K1's audio);
+    flags: [W, C] uint8.  Returns (audio [W, C], new_tail [A, C], open_now
+    [W, C] bool).  CUDA tensors launch the fade-tail kernel or raise; CPU
+    tensors take the plain version, which the kernel equals bit for bit.
+    """
+    if waveout.device.type == "cpu":
+        audio, new_tail = apply_fade_and_tail(waveout_tail, waveout, (flags & 2) != 0)
+        return audio, new_tail, (flags & 1) != 0
+    if waveout.device.type != "cuda":
+        raise ValueError(f"fade_and_tail: unsupported device {waveout.device}")
+    global FADE_LAUNCHES
+    dev = waveout.device
+    lib = fade_library()
+    with torch.cuda.device(dev):
+        audio, new_tail, open_now, args = _fade_tail_args(lib, waveout_tail, waveout, flags)
+        launch_fade_tail(lib, args)
+    FADE_LAUNCHES += 1
+    return audio, new_tail, open_now
+
+
+def _fade_tail_args(lib: ctypes.CDLL, waveout_tail, waveout, flags):
+    """Check the inputs of the fade-tail kernel, allocate its outputs and
+    fill its ``FadeTailArgs``: (audio, new_tail, open_now, args)."""
+    if waveout.dim() != 2 or waveout_tail.dim() != 2:
+        raise ValueError(f"fade_and_tail: expected [W, C] and [A, C], got {tuple(waveout.shape)} and {tuple(waveout_tail.shape)}")
+    (W, C), A = waveout.shape, waveout_tail.shape[0]
+    if not 1 <= A <= len(FADE_DECAY) or W < 1 or C < 1:
+        raise ValueError(f"fade_and_tail: need 1 <= A <= {len(FADE_DECAY)}, W >= 1, C >= 1, got A={A}, W={W}, C={C}")
+    dev = waveout.device
+    _check("waveout_tail", waveout_tail, _F32, (A, C), dev)
+    _check("waveout", waveout, _F32, (W, C), dev)
+    _check("flags", flags, torch.uint8, (W, C), dev)
+    audio = torch.empty((W, C), dtype=_F32, device=dev)
+    new_tail = torch.empty((A, C), dtype=_F32, device=dev)
+    open_now = torch.empty((W, C), dtype=_BOOL, device=dev)
+    ptrs = dict(tail=waveout_tail, raw=waveout, flags=flags, decay=_fade_decay(dev), audio=audio, new_tail=new_tail, open_now=open_now)
+    Args = _struct_type(lib, "FadeTailArgs", "fade_tail_arg_names", ("W", "C", "A"))
+    args = Args(W=W, C=C, A=A, **{n: t.data_ptr() for n, t in ptrs.items()})
+    return audio, new_tail, open_now, args
+
+
+def launch_fade_tail(lib: ctypes.CDLL, args) -> None:
+    """One launch of the fade-tail kernel on the current stream, in the
+    segments it plans from (W, C) and the card; raises if it was refused."""
+    rc = lib.fade_tail_launch(ctypes.addressof(args), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fade-tail kernel launch failed: CUDA error {rc}")
+
+
+def fade_tail_host(waveout_tail, waveout, flags, seg_rows: int):
+    """Test aid: the fade-tail kernel's code (``csrc/fade_tail.cuh``) built
+    for the host with g++ and run on CPU tensors, segment after segment, in
+    segments of ``seg_rows`` rows.  Same returns as :func:`fade_and_tail`."""
+    lib = host_library()
+    audio, new_tail, open_now, args = _fade_tail_args(lib, waveout_tail, waveout, flags)
+    if lib.fade_tail_host(ctypes.addressof(args), seg_rows) != 0:
+        raise ValueError(f"host build: no segments of {seg_rows} rows")
+    return audio, new_tail, open_now
+
+
+def fade_tail_segment_rows(W: int, C: int, A: int = AGC_EXTRA, sms: int = 132) -> int:
+    """The segment length the kernel plans for (W, C) on a card of ``sms``
+    SMs (the H100 SXM's 132 by default), from the host build."""
+    return int(host_library().fade_tail_segment_rows(W, C, A, sms))
 
 
 def _check_width(block_width: int) -> None:
@@ -269,7 +352,10 @@ def _bind_common(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 @functools.cache
 def cuda_library() -> ctypes.CDLL:
-    """The nvcc-built ``csrc/demod.cu``, built at first use and kept."""
+    """The nvcc-built ``csrc/demod.cu``, built at first use and kept; the
+    fade-tail kernel that follows it on every block builds beside it, in
+    the same parallel call."""
+    _build.build_kernels(("demod.cu", "fade_tail.cu"))
     lib = _bind_common(_build.load_kernel("demod.cu"))
     lib.demod_launch.restype = ctypes.c_int
     lib.demod_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -289,9 +375,23 @@ def schedule_library() -> ctypes.CDLL:
 
 
 @functools.cache
+def fade_library() -> ctypes.CDLL:
+    """The nvcc-built ``csrc/fade_tail.cu`` (built with K1's library by
+    :func:`cuda_library`, or here at first use) and kept."""
+    lib = _build.load_kernel("fade_tail.cu")
+    lib.fade_tail_launch.restype = ctypes.c_int
+    lib.fade_tail_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    return lib
+
+
+@functools.cache
 def host_library() -> ctypes.CDLL:
     """The g++ build of ``csrc/demod_host.cpp``, a test aid."""
     lib = _bind_common(_build.load_host("demod_host.cpp"))
+    lib.fade_tail_host.restype = ctypes.c_int
+    lib.fade_tail_host.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.fade_tail_segment_rows.restype = ctypes.c_int
+    lib.fade_tail_segment_rows.argtypes = [ctypes.c_int] * 4
     lib.demod_host_tiled.restype = ctypes.c_int
     lib.demod_host_tiled.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.demod_host_global.restype = ctypes.c_int

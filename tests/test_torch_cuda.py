@@ -5,7 +5,8 @@ dispatch, K1 once a block) and the FFT channelizer's precision; the App
 from a libconfig file (K1 once a block, per-device demod threads equal to
 one thread bit for bit, no multi-GPU mesh); K1 refusing trace mode, which
 the plain version has; K1's unroll and pair schedules against the default at
-8192 channels and the pair rule at an odd tile count; scripts/bench.py's,
+8192 channels and the pair rule at an odd tile count; the fade-tail kernel
+against the plain assembly, once a K1 launch; scripts/bench.py's,
 bench_pair.py's and bench_unroll.py's lines on the card.
 
 Needs an NVIDIA GPU and nvcc; skips without a card.  The file imports
@@ -28,7 +29,7 @@ from rtlsdr_airband_tpu_torch import interop
 from rtlsdr_airband_tpu_torch.app import App
 from rtlsdr_airband_tpu_torch.constants import AGC_EXTRA
 from rtlsdr_airband_tpu_torch.ops import demod_cuda
-from rtlsdr_airband_tpu_torch.ops.demod import demod_block
+from rtlsdr_airband_tpu_torch.ops.demod import apply_fade_and_tail, demod_block
 from rtlsdr_airband_tpu_torch.ops.channelizer import block_input_len, channelize_fft
 from rtlsdr_airband_tpu_torch.ops.params import ChannelSpec, init_demod_state, make_channel_params
 from rtlsdr_airband_tpu_torch.ops.window import blackman_harris_7
@@ -204,6 +205,62 @@ def test_pair_runs_the_default_at_an_odd_tile_count_on_card(cuda_device, monkeyp
         torch.cuda.synchronize()
         assert demod_cuda.SCHEDULE_LAUNCHES[want] == before + 1
         assert_bitwise(demod_block(params, st, m, q), got, f"C={C}")
+
+
+def _fade_inputs(W, C, seed, device):
+    """A carried tail, K1's audio and flag bytes with squelch bits on about
+    half the samples and close marks on about one in a hundred, plus marks at
+    row 0, inside rows 1-99, 50 rows apart and at W - 1."""
+    rng = np.random.default_rng(seed)
+    tail = rng.normal(0, 0.5, (AGC_EXTRA, C)).astype(np.float32)
+    raw = rng.normal(0, 0.5, (W, C)).astype(np.float32)
+    flags = (rng.random((W, C)) < 0.5).astype(np.uint8) | ((rng.random((W, C)) < 0.01).astype(np.uint8) << 1)
+    for c, rows in ((0, (0,)), (C // 2, (37, 87)), (C - 1, (W - 1,))):
+        flags[list(rows), c] |= 2
+    return tuple(torch.from_numpy(x).to(device) for x in (tail, raw, flags))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W, C", [(2000, 8192), (2000, 2280), (257, 65), (100, 3)])
+def test_fade_tail_kernel_matches_plain_on_card(cuda_device, W, C):
+    """The fade-tail kernel at the shape it plans for (W, C) against the
+    plain assembly on the card, bit for bit in audio, new tail and open
+    flags; one launch, counted."""
+    tail, raw, flags = _fade_inputs(W, C, C, cuda_device)
+    before = demod_cuda.FADE_LAUNCHES
+    got = demod_cuda.fade_and_tail(tail, raw, flags)
+    assert demod_cuda.FADE_LAUNCHES == before + 1
+    audio, new_tail = apply_fade_and_tail(tail, raw, (flags & 2) != 0)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("audio", "new_tail", "open_now"), (audio, new_tail, (flags & 1) != 0), got):
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        assert torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                           y.view(torch.int32) if y.dtype == torch.float32 else y), f"{name} differs at W={W}, C={C}"
+    assert bool((audio != torch.cat([tail, raw])[:W]).any())  # the scene's marks rewrote rows
+
+
+@pytest.mark.cuda
+def test_demod_block_cuda_launches_the_fade_tail_kernel_once_a_block(cuda_device, monkeypatch):
+    """Every K1 launch of demod_block_cuda is followed by one launch of the
+    fade-tail kernel, and the CUDA path runs no torch.cummax."""
+    C, W = 65, 257
+    specs = [ChannelSpec(**k) for k in spec_population(C)]
+    params = make_channel_params(specs, wave_rate=16000, sample_rate=FS, center_freq=CENTER, fft_size=N, device="cpu")
+    rng = np.random.default_rng(19)
+    st = active_state(params, C, rng, cuda_device)
+    params = type(params)(*(t.to(cuda_device) for t in params))
+
+    def no_cummax(*a, **k):
+        raise AssertionError("torch.cummax ran on the CUDA path")
+
+    monkeypatch.setattr(torch, "cummax", no_cummax)
+    k1, fade = demod_cuda.LAUNCHES, demod_cuda.FADE_LAUNCHES
+    for blk in range(3):
+        m = torch.from_numpy(np.abs(rng.normal(0, 1.0, (W, C)) + (3.0 if blk == 0 else 0.0)).astype(np.float32)).to(cuda_device)
+        q = torch.from_numpy(rng.normal(0, 0.5, (W, C, 2)).astype(np.float32)).to(cuda_device)
+        st = demod_cuda.demod_block_cuda(params, st, m, q)[0]
+        assert (demod_cuda.LAUNCHES - k1, demod_cuda.FADE_LAUNCHES - fade) == (blk + 1, blk + 1)
+    torch.cuda.synchronize()
 
 
 def _jax_line_keys(script: str) -> set:
