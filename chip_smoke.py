@@ -10,12 +10,12 @@ package.  Phases, each fatal on failure:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds every kernel from csrc/ (one process per source: K1's
    default schedule, K1's other schedules, K2); per kernel its registers and
-   spills (ptxas), K1's dynamic shared memory at each block width and in the
-   pair block, its SASS memory instructions and the instructions of its step
-   loop (cuobjdump), for every schedule;
+   spills (ptxas), K1's dynamic shared memory a block of BLOCK_WIDTH channels
+   and a pair block, its SASS memory instructions and the instructions of its
+   step loop (cuobjdump), for every schedule;
 3. parity: on the 8192-channel active scene (build_flagship_stream, W = 2000,
    4 blocks: squelch opens and closes on the carriers, CTCSS banks decide)
-   the demod kernel K1, at its default block width, against its plain
+   the demod kernel K1, in its default schedule, against its plain
    PyTorch version on the same inputs: every output and state leaf equal
    bit for bit;
 4. channelizer: torch.matmul in float32 against float64, SNR >= 80 dB at
@@ -23,10 +23,10 @@ package.  Phases, each fatal on failure:
 5. main path: build_flagship(8192) on the card, K = 8 distinct blocks
    through the FlagshipBlock with the launch counters at 0, then timings
    with CUDA events on the same blocks and states (warm-up, min over reps):
-   the block, the channelizer GEMMs, K1 alone on each block at both block
-   widths, the first (device-memory) design of K1 and K1's schedules (unroll
-   2 and 4, pair at unroll 1, 2 and 4), each with and without the CTCSS
-   banks, all equal bit for bit; the plain demod on the last
+   the block, the channelizer GEMMs, K1 alone on each block in the default
+   schedule and in its other five (unroll 2 and 4, pair at unroll 1, 2 and
+   4), each with and without the CTCSS banks, each equal to the default bit
+   for bit; the plain demod on the last
    block; K1's bytes bound and issue bound; the fade-tail kernel (one
    launch a K1 launch) on the last block's assembly inputs at 8192 and
    2280 channels, bit for bit against the plain assembly, alone and plain
@@ -277,12 +277,12 @@ def state_diffs(a_state, b_state) -> dict:
 
 def k1_schedule_of(fn: str) -> str | None:
     """The schedule name (``demod_cuda.schedule_name``) of a K1 kernel by its
-    mangled name; the default at block width 32 gets "_bw32"."""
+    mangled name."""
     import re
 
-    m = re.search(r"demod_kernelILi(\d+)ELi(\d+)EE", fn)
+    m = re.search(r"demod_kernelILi\d+ELi(\d+)EE", fn)
     if m:
-        return f"single_u{m.group(2)}" + ("" if m.group(1) == "64" else f"_bw{m.group(1)}")
+        return f"single_u{m.group(1)}"
     m = re.search(r"demod_pair_kernelILi(\d+)EE", fn)
     return f"pair_u{m.group(1)}" if m else None
 
@@ -298,9 +298,8 @@ def phase_k1_build(built) -> tuple[int | None, dict]:
 
     from rtlsdr_airband_tpu_torch.ops import demod_cuda
 
-    lib = demod_cuda.cuda_library()
-    for w in demod_cuda.BLOCK_WIDTHS:
-        log(f"K1 block width {w}: {demod_cuda.smem_bytes(lib, w)} bytes of dynamic shared memory a block")
+    log(f"K1 block ({demod_cuda.BLOCK_WIDTH} channels): {demod_cuda.smem_bytes(demod_cuda.cuda_library())} bytes of "
+        f"dynamic shared memory a block")
     log(f"K1 pair block (2 x {demod_cuda.PAIR_TILE} channels): {demod_cuda.pair_smem_bytes(demod_cuda.schedule_library())} "
         f"bytes of dynamic shared memory a block")
     info = {}
@@ -419,28 +418,13 @@ def demod_bound(params, state, mags) -> tuple[float, str, str]:
     return max(bytes_ms, ops_ms), by, how
 
 
-def k1_designs() -> dict:
-    """K1's launchers by name: the shared-memory design at each built block
-    width, the first, device-memory design, and the schedules (named by
-    ``demod_cuda.schedule_name``; the pair schedule needs an even count of
-    32-channel tiles, as every count here has)."""
+def k1_schedules() -> dict:
+    """K1's schedules by name (``demod_cuda.schedule_name``): the default and
+    SCHEDULES, as (unroll, pair); the pair schedule needs an even count of
+    32-channel tiles, as every count here has."""
     from rtlsdr_airband_tpu_torch.ops import demod_cuda
 
-    designs = {f"smem{w}": (lambda lib, args, w=w: demod_cuda.launch_kernel(lib, args, w)) for w in demod_cuda.BLOCK_WIDTHS}
-    designs["global"] = demod_cuda.launch_global_kernel
-    for unroll, pair in SCHEDULES:
-        designs[demod_cuda.schedule_name(unroll, pair)] = demod_cuda.schedule_launcher(unroll, pair)
-    return designs
-
-
-def kernel_ms(launcher, params, state, mags, iqs, reps: int, with_ctcss: bool = True):
-    """K1 alone: CUDA events right around ``launcher(lib, args)``, min over
-    ``reps`` after a warm-up, and the last run's outputs; not counted in
-    LAUNCHES (``scripts/bench_scaling.py::kernel_ms``, which its channel
-    sweep uses too)."""
-    from rtlsdr_airband_tpu_torch.scripts.bench_scaling import kernel_ms as k1_alone_ms
-
-    return k1_alone_ms(launcher, params, state, mags, iqs, reps, with_ctcss)
+    return {demod_cuda.schedule_name(u, p): (u, p) for u, p in ((1, False),) + SCHEDULES}
 
 
 def same_bits(a, b) -> bool:
@@ -458,6 +442,7 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
     from rtlsdr_airband_tpu_torch.ops import demod_cuda
     from rtlsdr_airband_tpu_torch.ops.channelizer import channelize_matmul
     from rtlsdr_airband_tpu_torch.ops.demod import demod_block
+    from rtlsdr_airband_tpu_torch.scripts.bench_scaling import kernel_ms  # K1 alone, not counted in LAUNCHES
 
     block, x, state0 = build_flagship(n_channels=C_FLAGSHIP, wave_rate=16000, device=device)
     kw = block.block_kwargs
@@ -509,21 +494,21 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
     taps = (block.taps_re, block.taps_im)
     inputs = [channelize_matmul(xb, block.bins, block.window, hop=hop, fft_size=kw["fft_size"], n_frames=W, taps=taps) for xb in xs]
     gemm_ms = time_ms(lambda: channelize_matmul(xs[0], block.bins, block.window, hop=hop, fft_size=kw["fft_size"], n_frames=W, taps=taps), reps=10)
-    # K1 alone in each design on each block, with and without the Goertzel
-    # banks (how much of K1 the CTCSS channels cost); every design's outputs
-    # on a block equal bit for bit
-    per = {(d, ct): [] for d in k1_designs() for ct in (True, False)}
+    # K1 alone in each schedule on each block, with and without the Goertzel
+    # banks (how much of K1 the CTCSS channels cost); every schedule's
+    # outputs on a block equal the default's bit for bit
+    default = demod_cuda.schedule_name(1, False)
+    per = {(d, ct): [] for d in k1_schedules() for ct in (True, False)}
     for k, (st, (m, q)) in enumerate(zip(states_in, inputs)):
         for ct in (True, False):
             outs_k = {}
-            for d, launcher in k1_designs().items():
-                ms, outs_k[d] = kernel_ms(launcher, params, st, m, q, reps=3, with_ctcss=ct)
+            for d, (unroll, pair) in k1_schedules().items():
+                ms, outs_k[d] = kernel_ms(params, st, m, q, reps=3, with_ctcss=ct, unroll=unroll, pair=pair)
                 per[d, ct].append(ms)
-            if not all(same_bits(outs_k["global"], o) for o in outs_k.values()):
-                raise AssertionError(f"block {k} (with_ctcss={ct}): K1's designs differ: " + ", ".join(
-                    f"{d} {'=' if same_bits(outs_k['global'], o) else '!='} global" for d, o in outs_k.items()))
+            if not all(same_bits(outs_k[default], o) for o in outs_k.values()):
+                raise AssertionError(f"block {k} (with_ctcss={ct}): K1's schedules differ: " + ", ".join(
+                    f"{d} {'=' if same_bits(outs_k[default], o) else '!='} {default}" for d, o in outs_k.items()))
     mean = {key: sum(v) / K_BLOCKS for key, v in per.items()}
-    default = f"smem{demod_cuda.BLOCK_WIDTH}"
     last_mags, last_iqs = inputs[-1]
     plain_ms = time_ms(lambda: demod_block(params, states_in[-1], last_mags, last_iqs), reps=1, warmup=0)
     bound_ms, bound_by, how = demod_bound(params, states_in[-1], last_mags)
@@ -535,8 +520,6 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
         realtime_factor=(W / 16000) / block_s,
         k1_ms=mean[default, True],
         k1_no_ctcss_ms=mean[default, False],
-        k1_global_ms=mean["global", True],
-        k1_global_no_ctcss_ms=mean["global", False],
         gemm_ms=gemm_ms,
         plain_ms=plain_ms,
         bound_ms=bound_ms,
@@ -546,19 +529,13 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
         fade_launches=fade_launches,
         fade=fade,
         flagship=(block, x, state0),
-        schedule_ms={demod_cuda.schedule_name(u, p): mean[demod_cuda.schedule_name(u, p), True] for u, p in SCHEDULES},
-        schedule_no_ctcss_ms={demod_cuda.schedule_name(u, p): mean[demod_cuda.schedule_name(u, p), False] for u, p in SCHEDULES},
+        schedule_ms={d: mean[d, True] for d in k1_schedules() if d != default},
+        schedule_no_ctcss_ms={d: mean[d, False] for d in k1_schedules() if d != default},
     )
     for (d, ct), v in per.items():
-        log(f"K1 {d:<8s} {'with' if ct else 'without'} the CTCSS banks, per main-path block (ms): "
+        log(f"K1 {d:<9s} {'with' if ct else 'without'} the CTCSS banks, per main-path block (ms): "
             f"{' '.join(f'{x:.4f}' for x in v)}; mean {mean[d, ct]:.4f}")
-    widths = {w: mean[f"smem{w}", True] for w in demod_cuda.BLOCK_WIDTHS}
-    faster = min(widths, key=widths.get)
-    log(f"K1 block width: default {demod_cuda.BLOCK_WIDTH}, faster on this card {faster} "
-        f"({', '.join(f'{w}: {v:.4f} ms' for w, v in widths.items())}); designs equal bit for bit on all {K_BLOCKS} blocks")
-    log(f"K1 speedup over the device-memory design [{card}]: {mean['global', True] / mean[default, True]:.2f}x with the banks, "
-        f"{mean['global', False] / mean[default, False]:.2f}x without")
-    log(f"K1 schedules against the default (width {demod_cuda.BLOCK_WIDTH}) [{card}], mean of the {K_BLOCKS} main-path blocks "
+    log(f"K1 schedules against the default [{card}], equal to it bit for bit on all {K_BLOCKS} main-path blocks; their mean "
         "with / without the CTCSS banks: " + "; ".join(
             f"{n} {t['schedule_ms'][n]:.4f} / {t['schedule_no_ctcss_ms'][n]:.4f} ms ({t['schedule_ms'][n] / mean[default, True]:.3f}x)"
             for n in t["schedule_ms"]))
@@ -571,7 +548,7 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
     profile_chain(run_chain, card)
     log(
         f"timing [{card}]: block_ms {block_ms:.3f} channel_msps {t['channel_msps']:.1f} realtime_factor {t['realtime_factor']:.2f} "
-        f"k1_ms {t['k1_ms']:.4f} (width {demod_cuda.BLOCK_WIDTH}; device-memory design {t['k1_global_ms']:.4f}) gemm_ms {gemm_ms:.3f} "
+        f"k1_ms {t['k1_ms']:.4f} gemm_ms {gemm_ms:.3f} "
         f"plain_demod_ms {plain_ms:.1f} k1_bound_ms {bound_ms:.4f}"
     )
     return t
@@ -722,8 +699,7 @@ def phase_probe(device, card: str, t: dict, clock_mhz: float) -> dict:
     log(f"step [{card}]: K2 chain1 {kinds['chain1']['us_per_step']:.4f} us (latency bound "
         f"{bounds['chain1'][2] / res['W'] * 1e3:.4f} us at {FP32_DEP_LATENCY_CYCLES} cycles, {clock_mhz:.0f} MHz); "
         f"K1 {t['k1_ms'] / W1 * 1e3:.4f} us with the CTCSS banks, {t['k1_no_ctcss_ms'] / W1 * 1e3:.4f} us without "
-        f"({t['k1_no_ctcss_ms'] / W1 * 1e3 / kinds['chain1']['us_per_step']:.2f}x the 40-link chain); the device-memory design "
-        f"{t['k1_global_ms'] / W1 * 1e3:.4f} and {t['k1_global_no_ctcss_ms'] / W1 * 1e3:.4f} us")
+        f"({t['k1_no_ctcss_ms'] / W1 * 1e3 / kinds['chain1']['us_per_step']:.2f}x the 40-link chain)")
     return dict(launches=launches, err=err, ms=c1_ms, plain_ms=plain_ms["chain1"], bound_ms=bounds["chain1"][0],
                 bound_by=bounds["chain1"][1], latency_bound_ms=bounds["chain1"][2])
 
@@ -1271,6 +1247,7 @@ def mesh_block_program(devices, card: str, timed: bool) -> dict:
     from rtlsdr_airband_tpu_torch.ops import demod_cuda
     from rtlsdr_airband_tpu_torch.parallel import sharding
     from rtlsdr_airband_tpu_torch.runtime.pipeline import pipeline_block
+    from rtlsdr_airband_tpu_torch.scripts.bench_scaling import kernel_ms
 
     device = torch.device(devices[0])
     block, x, state0 = build_flagship(n_channels=C_FLAGSHIP, wave_rate=16000, device=device)
@@ -1362,11 +1339,10 @@ def mesh_block_program(devices, card: str, timed: bool) -> dict:
         shards = sharding.reshard_rows(mesh, rows, layout, W)
     for d in set(mesh.cells):
         torch.cuda.synchronize(d)
-    lib_k1 = k1_designs()[f"smem{demod_cuda.BLOCK_WIDTH}"]
     shard_ms = []
     for j, (cell, _) in enumerate(layout):
         with torch.cuda.device(mesh.device(cell)):  # K1 alone, on the shard's own GPU
-            shard_ms.append(kernel_ms(lib_k1, params[j], states_in[0][j], *shards[j], reps=3)[0])
+            shard_ms.append(kernel_ms(params[j], states_in[0][j], *shards[j], reps=3)[0])
     bound_ms, bound_by, how = demod_bound(params[0], states_in[0][0], shards[0][0])
     k1_total, k1_n, copy_ms = mesh_profile(run_mesh, card)
     log(f"mesh timing [{card}]: block {mesh_ms:.3f} ms through the mesh against {single_ms:.3f} ms on one device "
@@ -1764,8 +1740,6 @@ def phase_schedules(device, card: str, scene: dict, t: dict, builds: dict) -> di
     # ---- (d) per schedule, what the kernels line carries ----
     per = {}
     for name, b in builds.items():
-        if name.endswith("_bw32"):
-            continue
         per[name] = dict(b, ms=t["k1_ms"] if name == "single_u1" else t["schedule_ms"][name],
                          no_ctcss_ms=t["k1_no_ctcss_ms"] if name == "single_u1" else t["schedule_no_ctcss_ms"][name],
                          stream_launches=pair_counts.get(name, 0) + ref_counts.get(name, 0), bit_for_bit=True,
@@ -1859,7 +1833,6 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "latency_bound_ms": t["issue_bound_ms"],
-        "global_design_ms": t["k1_global_ms"],
         "library_ms": None,
         "schedules": sc["schedules"],
     }, {

@@ -21,75 +21,37 @@
 // memory and loaded each sample at the top of its step, so a step waited on
 // round trips to L2 and DRAM, and an open CTCSS channel on 2 x 52 of them.
 //
-// What this design does about it: a block of BW channels (32 or 64, a
-// template parameter) keeps its rings, banks and tone tables in dynamic
-// shared memory as [row][BW], the channel fastest, so each warp access
-// touches 32 banks once and waits ~30 cycles, not an L2 round trip.  The
-// input is staged into shared memory a tile of 32 samples ahead with
-// cp.async (4- and 8-byte copies of the thread's own channel: any C, and
-// the iq_tail / iqs switch at n = 100 row by row), so no step waits on
-// device memory.  Each thread touches only its own column, so the only
-// barrier is the sin/cos table's.  Outputs are stored as before; nothing in
-// the step reads device memory after them.  The scalar state stays in
-// registers; rare work (AGC bootstrap, banks, window decision) stays per-
-// thread branches; cost_group_permutation keeps warps nearly uniform.
-// About 185 KB a block at BW = 64 (one block an SM), 93 KB at BW = 32 (two).
-// Built with --fmad=false and without fast math, so each operation rounds
-// as the plain PyTorch version's does and the outputs are equal bit for bit.
+// What this design does about it: a block of BW = BLOCK_WIDTH (64) channels
+// keeps its rings, banks and tone tables in dynamic shared memory as
+// [row][BW], the channel fastest, so each warp access touches 32 banks once
+// and waits ~30 cycles, not an L2 round trip.  The input is staged into
+// shared memory a tile of 32 samples ahead with cp.async (4- and 8-byte
+// copies of the thread's own channel: any C, and the iq_tail / iqs switch
+// at n = 100 row by row), so no step waits on device memory.  Each thread
+// touches only its own column, so the only barrier is the sin/cos table's.
+// Outputs are stored as before; nothing in the step reads device memory
+// after them.  The scalar state stays in registers; rare work (AGC
+// bootstrap, banks, window decision) stays per-thread branches;
+// cost_group_permutation keeps warps nearly uniform.  About 185 KB a block,
+// so one block an SM.  Built with --fmad=false and without fast math, so
+// each operation rounds as the plain PyTorch version's does and the outputs
+// are equal bit for bit.
 //
-// The device-memory design stays as demod_global_kernel, the same header
-// instantiated with device-memory accessors, launched only to time the new
-// design against it.  The kernels are templates (demod_kernels.cuh); this
-// file builds the default schedule, one sample a loop trip, at both block
-// widths.  The schedules a caller may ask for instead, several samples a
-// trip and two channel tiles a block, are built from the same templates by
+// The kernels are templates (demod_kernels.cuh); this file builds the
+// default schedule, one sample a loop trip, at BLOCK_WIDTH channels a block.
+// The schedules a caller may ask for instead, several samples a trip and two
+// channel tiles a block, are built from the same templates by
 // demod_sched.cu.
 
 #include "demod_kernels.cuh"
 
-namespace {
-
-constexpr int kGlobalThreads = 64;
-
-__global__ void __launch_bounds__(kGlobalThreads)
-    demod_global_kernel(const __grid_constant__ DemodArgs a, float* __restrict__ scratch) {
-  __shared__ float sin_lut[demod::LUT_ENTRIES];
-  __shared__ float cos_lut[demod::LUT_ENTRIES];
-  for (int i = threadIdx.x; i < demod::LUT_ENTRIES; i += blockDim.x) {
-    sin_lut[i] = a.p_sin_lut[i];
-    cos_lut[i] = a.p_cos_lut[i];
-  }
-  __syncthreads();
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c < a.C) demod::demod_global(a, c, sin_lut, cos_lut, scratch);
+// The shared-memory K1 in the default schedule.  Returns a cudaError_t, 0
+// when the launch was taken.
+extern "C" int demod_launch(const DemodArgs* a, void* stream) {
+  return static_cast<int>(launch_tiled<demod::BLOCK_WIDTH, 1>(*a, static_cast<cudaStream_t>(stream)));
 }
 
-}  // namespace
-
-// The shared-memory K1 at block_width 32 or 64.  Returns a cudaError_t, 0
-// when the launch was taken; cudaErrorInvalidValue for any other width.
-extern "C" int demod_launch(const DemodArgs* a, int block_width, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (block_width) {
-    case 32:
-      return static_cast<int>(launch_tiled<32, 1>(*a, s));
-    case 64:
-      return static_cast<int>(launch_tiled<64, 1>(*a, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// The device-memory design; scratch is [GLOBAL_SCRATCH_ROWS, C] float32.
-extern "C" int demod_launch_global(const DemodArgs* a, float* scratch, void* stream) {
-  const int blocks = (a->C + kGlobalThreads - 1) / kGlobalThreads;
-  demod_global_kernel<<<blocks, kGlobalThreads, 0, static_cast<cudaStream_t>(stream)>>>(*a, scratch);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Dynamic shared memory of one block at block_width; 0 for a width not built.
-extern "C" size_t demod_smem_bytes(int block_width) { return demod::smem_bytes(block_width); }
-
-extern "C" int demod_global_scratch_rows() { return demod::GLOBAL_SCRATCH_ROWS; }
+// Dynamic shared memory of one block.
+extern "C" size_t demod_smem_bytes() { return demod::SmemLayout<demod::BLOCK_WIDTH>::bytes; }
 
 extern "C" const char* demod_arg_names() { return DEMOD_ARG_NAMES; }

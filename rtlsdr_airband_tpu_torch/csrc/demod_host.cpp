@@ -13,10 +13,10 @@
 
 namespace {
 
-// The shared-memory design as the kernel runs it: channel groups of BW, one
-// shared-memory image reused by group after group as an SM reuses its
-// shared memory, the lanes of a group run one after another (each touches
-// only its own column, as each thread does on the card).
+// K1 as the kernel runs it: channel groups of BW, one shared-memory image
+// reused by group after group as an SM reuses its shared memory, the lanes
+// of a group run one after another (each touches only its own column, as
+// each thread does on the card).
 template <int BW, int U>
 int run_tiled(const DemodArgs& a) {
   using L = demod::SmemLayout<BW>;
@@ -49,10 +49,10 @@ int run_pair(const DemodArgs& a) {
 
 }  // namespace
 
-// The schedules the card builds (csrc/demod.cu, csrc/demod_sched.cu): block
-// width 32 or 64 at unroll 1, 64 at unroll 2 or 4, the pair block at unroll
-// 1, 2 or 4.  Returns 0, or 1 for a schedule not built.
-extern "C" int demod_host_tiled(const DemodArgs* a, int block_width, int unroll, int pair) {
+// The schedules the card builds (csrc/demod.cu, csrc/demod_sched.cu):
+// BLOCK_WIDTH channels a block at unroll 1, 2 or 4, the pair block at
+// unroll 1, 2 or 4.  Returns 0, or 1 for a schedule not built.
+extern "C" int demod_host_tiled(const DemodArgs* a, int unroll, int pair) {
   if (pair) {
     switch (unroll) {
       case 1:
@@ -65,24 +65,15 @@ extern "C" int demod_host_tiled(const DemodArgs* a, int block_width, int unroll,
         return 1;
     }
   }
-  if (block_width == 32 && unroll == 1) return run_tiled<32, 1>(*a);
-  if (block_width == 64 && unroll == 1) return run_tiled<64, 1>(*a);
-  if (block_width == 64 && unroll == 2) return run_tiled<64, 2>(*a);
-  if (block_width == 64 && unroll == 4) return run_tiled<64, 4>(*a);
+  if (unroll == 1) return run_tiled<demod::BLOCK_WIDTH, 1>(*a);
+  if (unroll == 2) return run_tiled<demod::BLOCK_WIDTH, 2>(*a);
+  if (unroll == 4) return run_tiled<demod::BLOCK_WIDTH, 4>(*a);
   return 1;
 }
 
-// The device-memory design; scratch is [GLOBAL_SCRATCH_ROWS, C] float32.
-extern "C" int demod_host_global(const DemodArgs* a, float* scratch) {
-  for (int c = 0; c < a->C; ++c) demod::demod_global(*a, c, a->p_sin_lut, a->p_cos_lut, scratch);
-  return 0;
-}
-
-extern "C" size_t demod_smem_bytes(int block_width) { return demod::smem_bytes(block_width); }
+extern "C" size_t demod_smem_bytes() { return demod::SmemLayout<demod::BLOCK_WIDTH>::bytes; }
 
 extern "C" size_t demod_pair_smem_bytes() { return demod::PairLayout::bytes; }
-
-extern "C" int demod_global_scratch_rows() { return demod::GLOBAL_SCRATCH_ROWS; }
 
 extern "C" const char* demod_arg_names() { return DEMOD_ARG_NAMES; }
 

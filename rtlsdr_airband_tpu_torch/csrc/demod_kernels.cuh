@@ -1,6 +1,6 @@
 // K1's kernels as templates, instantiated by csrc/demod.cu (the default
-// schedule at both block widths, the path every caller takes) and by
-// csrc/demod_sched.cu (the schedules a caller asks for by name), so that
+// schedule at BLOCK_WIDTH channels a block, the path every caller takes) and
+// by csrc/demod_sched.cu (the schedules a caller asks for by name), so that
 // the default's build does not grow with the schedules'.
 //
 // demod_kernel<BW, U>: a block of BW channels, one thread each, U samples a
@@ -43,8 +43,8 @@ __global__ void __launch_bounds__(demod::PAIR_TILE) demod_pair_kernel(const __gr
 }
 
 // Launch `kernel` on `blocks` blocks of `threads` with `bytes` of dynamic
-// shared memory, at the largest shared-memory carveout (so two 32-channel
-// blocks fit on one SM).
+// shared memory, at the largest shared-memory carveout (one block
+// takes about 185 KB of an SM's 228).
 template <class Kernel>
 cudaError_t launch(Kernel kernel, int blocks, int threads, size_t bytes, const DemodArgs& a, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));

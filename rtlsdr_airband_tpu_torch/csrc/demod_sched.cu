@@ -4,7 +4,7 @@
 // rtlsdr_airband_tpu/ops/demod_pallas.py::_make_kernel (`unroll`, `pair`,
 // :157-166, :633-646) and demod_block_pallas (:695-709).
 //
-// - unroll U = 2 or 4 at the default block width of 64 channels: U samples
+// - unroll U = 2 or 4 at BLOCK_WIDTH (64) channels a block: U samples
 //   a loop trip.  It cuts the loop's own instructions, not the dependency
 //   from one sample to the next.
 // - pair: a block of two 32-channel tiles on 32 threads, thread t stepping
@@ -30,8 +30,8 @@
 extern "C" int demod_launch_schedule(const DemodArgs* a, int unroll, int pair, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
-  if (!pair && unroll == 2) e = launch_tiled<64, 2>(*a, s);
-  if (!pair && unroll == 4) e = launch_tiled<64, 4>(*a, s);
+  if (!pair && unroll == 2) e = launch_tiled<demod::BLOCK_WIDTH, 2>(*a, s);
+  if (!pair && unroll == 4) e = launch_tiled<demod::BLOCK_WIDTH, 4>(*a, s);
   if (pair && unroll == 1) e = launch_pair<1>(*a, s);
   if (pair && unroll == 2) e = launch_pair<2>(*a, s);
   if (pair && unroll == 4) e = launch_pair<4>(*a, s);
@@ -41,8 +41,7 @@ extern "C" int demod_launch_schedule(const DemodArgs* a, int unroll, int pair, v
 // Dynamic shared memory of one pair block.
 extern "C" size_t demod_pair_smem_bytes() { return demod::PairLayout::bytes; }
 
-extern "C" size_t demod_smem_bytes(int block_width) { return demod::smem_bytes(block_width); }
-
-extern "C" int demod_global_scratch_rows() { return demod::GLOBAL_SCRATCH_ROWS; }
+// Dynamic shared memory of one block of the unroll schedules.
+extern "C" size_t demod_smem_bytes() { return demod::SmemLayout<demod::BLOCK_WIDTH>::bytes; }
 
 extern "C" const char* demod_arg_names() { return DEMOD_ARG_NAMES; }

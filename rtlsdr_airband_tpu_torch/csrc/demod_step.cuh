@@ -15,8 +15,8 @@
 // channel fastest, so the threads of a warp (consecutive channels) touch
 // consecutive addresses.  Where the step keeps its rings, Goertzel banks and
 // tone tables (a Column) and where it takes each sample from (a source) are
-// the caller's: demod_tiles.cuh holds the two designs, the kernel's shared-
-// memory tiles and the first design's device-memory rows.  The step itself
+// the caller's: demod_tiles.cuh holds them, the kernel's shared-memory
+// tiles for one channel and for a pair.  The step itself
 // is demod_step_body.cuh, run by demod_channel and by Channel::step.
 
 #pragma once

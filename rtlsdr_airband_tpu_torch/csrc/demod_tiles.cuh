@@ -1,30 +1,23 @@
-// Where the demod step (demod_step.cuh) keeps its data, in the two designs
-// of K1.  Both run the same demod_channel(); only these accessors differ.
+// Where the demod step (demod_step.cuh) keeps its data in K1.
 //
-// The shared-memory design (demod_tiled, the kernel's): a block of BW
-// channels keeps each channel's rings, Goertzel banks and tone tables in
-// dynamic shared memory laid out [row][BW], the channel fastest, and stages
-// its input in tiles of TILE samples, tile k+1 copying in (cp.async) while
-// the block steps through tile k.  Every thread stages and reads only its own
-// channel's column, so no barrier is needed past the sin/cos table's.  The
-// tone tables sit in shared memory rather than behind the read-only cache
-// (__ldg): the step then reads device memory nowhere, and no tone load can
-// miss and stall the 52-tone loop; they cost 33 KB a 64-channel block, which
-// still fits, and are copied in only for CTCSS channels.
-//
-// The device-memory design (the first one, kept as the card's yardstick):
-// rings and banks in a [GLOBAL_SCRATCH_ROWS, C] device scratch array, tone
-// tables read from the parameters, each sample loaded from device memory at
-// the top of its step.
+// demod_tiled: a block of BW channels keeps each channel's rings, Goertzel
+// banks and tone tables in dynamic shared memory laid out [row][BW], the
+// channel fastest, and stages its input in tiles of TILE samples, tile k+1
+// copying in (cp.async) while the block steps through tile k.  Every thread
+// stages and reads only its own channel's column, so no barrier is needed
+// past the sin/cos table's.  The tone tables sit in shared memory rather
+// than behind the read-only cache (__ldg): the step then reads device memory
+// nowhere, and no tone load can miss and stall the 52-tone loop; they cost
+// 33 KB a 64-channel block, which still fits, and are copied in only for
+// CTCSS channels.
 //
 // The schedules (demod_sched.cu): U samples a loop trip (demod_channel's
 // U), and the pair block, two tiles of PAIR_TILE channels on one tile's
 // threads, each thread stepping one channel of each tile together
 // (demod_tiled_pair).
 //
-// The host build (demod_host.cpp) runs every design and schedule with
-// memcpy in place of cp.async, so the CPU tests hold the tiled index
-// arithmetic too.
+// The host build (demod_host.cpp) runs every schedule with memcpy in place
+// of cp.async, so the CPU tests hold the tiled index arithmetic too.
 
 #pragma once
 
@@ -35,7 +28,6 @@
 namespace demod {
 
 constexpr int TILE = 32;  // samples a staged input tile holds
-constexpr int GLOBAL_SCRATCH_ROWS = SQ_BUF + AGC_EXTRA + 4 * MAX_TONES;
 
 // Copy kBytes (4 or 8) of device memory into shared memory without waiting
 // for it: cp.async on the card, a plain copy on the host.
@@ -70,37 +62,6 @@ DEMOD_HD const float* iq_at(const float* iqs, const float* iq_tail, size_t C, in
   return (n < AGC_EXTRA) ? iq_tail + 2 * ((size_t)n * C + c) : iqs + 2 * ((size_t)(n - AGC_EXTRA) * C + c);
 }
 
-// ---- the device-memory design ----
-
-struct GlobalSource {
-  const float *mags, *iqs, *iq_tail;
-  size_t C;
-  int c;
-  DEMOD_HD void at(int n, float& s, float& r, float& i) const {
-    s = mags[(size_t)n * C + c];
-    const float* iq = iq_at(iqs, iq_tail, C, c, n);
-    r = iq[0];
-    i = iq[1];
-  }
-};
-
-// scratch: [GLOBAL_SCRATCH_ROWS, C] float32, rows: ring, delay line, banks
-DEMOD_HD Column global_column(const DemodArgs& a, float* scratch, int c) {
-  const size_t C = (size_t)a.C;
-  float* sq = scratch + c;
-  float* dl = sq + SQ_BUF * C;
-  float* q = dl + AGC_EXTRA * C;
-  return Column{sq, dl, q, q + MAX_TONES * C, q + 2 * MAX_TONES * C, q + 3 * MAX_TONES * C,
-                a.p_fast_coeff + c, a.p_slow_coeff + c, a.p_fast_mask + c, a.p_slow_mask + c, C};
-}
-
-DEMOD_HD void demod_global(const DemodArgs& a, int c, const float* sin_lut, const float* cos_lut, float* scratch) {
-  GlobalSource src{a.mags, a.iqs, a.iq_tail, (size_t)a.C, c};
-  demod_channel<1>(a, c, sin_lut, cos_lut, global_column(a, scratch, c), src);
-}
-
-// ---- the shared-memory design ----
-
 // Dynamic shared memory of one block of BW channels.  Offsets in floats,
 // except `mask` and `bytes`, in bytes.  Each array is [rows][BW].
 template <int BW>
@@ -116,11 +77,8 @@ struct SmemLayout {
   static constexpr size_t bytes = mask + 2 * MAX_TONES * BW;
 };
 
-// The block widths built (csrc/demod.cu instantiates each): the dynamic
-// shared memory of one block, 0 for a width not built.
-inline size_t smem_bytes(int block_width) {
-  return block_width == 32 ? SmemLayout<32>::bytes : block_width == 64 ? SmemLayout<64>::bytes : 0;
-}
+// Channels a block of the default schedule and of the unroll schedules.
+constexpr int BLOCK_WIDTH = 64;
 
 // The pair schedule's block: two tiles of PAIR_TILE channels on PAIR_TILE
 // threads, each tile in an image of SmemLayout<PAIR_TILE>, the second

@@ -7,11 +7,8 @@ launches the kernel or raises; for CPU tensors it runs the plain PyTorch
 version, ``ops.demod.demod_block``.
 
 The kernel keeps a block's rings, Goertzel banks and input tiles in shared
-memory; it is built at the block widths ``BLOCK_WIDTHS`` and launched at
-``BLOCK_WIDTH`` unless the caller names another built width.  The first
-design, with rings and banks in device memory, stays launchable through
-``launch_global_kernel`` only, as the yardstick ``chip_smoke.py`` times the
-kernel against.
+memory, ``BLOCK_WIDTH`` channels a block.  :func:`launch_k1` launches it in
+any schedule.
 
 The schedules (``csrc/demod_sched.cu``, a library of their own built at
 first use): ``unroll`` U in ``UNROLLS`` steps U samples a loop trip;
@@ -22,7 +19,6 @@ is the same, bit for bit; the default stays the default.  ``pair=None``
 reads ``RTLSDR_DEMOD_PAIR`` ("1" turns it on), as the JAX package does, so
 ``Pipeline`` and ``App`` honour the variable; as in the JAX package the pair
 schedule runs only where the tile count is even, and the default otherwise.
-The schedules are built at the default block width only.
 
 The kernel reads the state from the input tensors and writes a fresh state,
 so the caller's state is never modified.  ``LAUNCHES`` counts kernel
@@ -56,9 +52,8 @@ FADE_LAUNCHES = 0  # fade-tail kernel launches; the plain assembly never counts
 SCHEDULE_LAUNCHES: collections.Counter = collections.Counter()
 HOST_SCHEDULE = None  # the schedule demod_block_host ran last (a test aid)
 
-BLOCK_WIDTHS = (32, 64)  # channels a block, the widths csrc/demod.cu instantiates
-BLOCK_WIDTH = 64  # the default: the faster of the two on the card (PERF.md, section 6)
-UNROLLS = (1, 2, 4)  # samples a loop trip csrc/demod_sched.cu builds (at BLOCK_WIDTH)
+BLOCK_WIDTH = 64  # channels a block at every unroll (csrc/demod_tiles.cuh's BLOCK_WIDTH)
+UNROLLS = (1, 2, 4)  # samples a loop trip the kernel is built for
 PAIR_TILE = 32  # channels a tile in the pair schedule; a pair block holds two
 PAIR_ENV = "RTLSDR_DEMOD_PAIR"
 
@@ -138,10 +133,10 @@ def _args_type(lib: ctypes.CDLL) -> type:
 
 
 def run_with(launch, lib, params: ChannelParams, state: DemodState, mags, iqs, fm_quadri, with_ctcss, with_iq):
-    """Check the inputs, allocate outputs and scratch, call ``launch(args)``
+    """Check the inputs, allocate the outputs, call ``launch(args)``
     and assemble (new_state, audio, iq_out, open_flags).  ``launch`` gets the
     ctypes ``DemodArgs``; a caller that times the kernel alone wraps
-    :func:`launch_kernel` in its own ``launch``."""
+    :func:`launch_k1` in its own ``launch``."""
     if mags.dim() != 2:
         raise ValueError(f"mags: expected [W, C], got shape {tuple(mags.shape)}")
     W, C = mags.shape
@@ -260,26 +255,17 @@ def fade_tail_segment_rows(W: int, C: int, A: int = AGC_EXTRA, sms: int = 132) -
     return int(host_library().fade_tail_segment_rows(W, C, A, sms))
 
 
-def _check_width(block_width: int) -> None:
-    if block_width not in BLOCK_WIDTHS:
-        raise ValueError(f"block width {block_width}: the kernel is built for {BLOCK_WIDTHS} channels a block")
-
-
-def resolve_schedule(C: int, block_width: int, unroll: int, pair: bool | None) -> tuple[int, bool]:
+def resolve_schedule(C: int, unroll: int, pair: bool | None) -> tuple[int, bool]:
     """The schedule that runs for ``C`` channels: (unroll, pair).
 
     ``pair=None`` reads ``RTLSDR_DEMOD_PAIR``.  Pair runs only where the
     count of ``PAIR_TILE``-channel tiles is even (the JAX package's rule,
     ``demod_pallas.py:708``); otherwise the default schedule runs at the
-    same unroll.  Raises ``ValueError`` for an unroll not in ``UNROLLS`` and
-    for a schedule at a block width it is not built at."""
-    _check_width(block_width)
+    same unroll.  Raises ``ValueError`` for an unroll not in ``UNROLLS``."""
     if unroll not in UNROLLS:
         raise ValueError(f"unroll {unroll!r}: the kernel is built for {UNROLLS} samples a loop trip")
     if pair is None:
         pair = os.environ.get(PAIR_ENV, "0") == "1"
-    if (unroll != 1 or pair) and block_width != BLOCK_WIDTH:
-        raise ValueError(f"block width {block_width}: the unroll and pair schedules are built at block width {BLOCK_WIDTH} only")
     tiles = -(-C // PAIR_TILE)
     return unroll, bool(pair) and tiles % 2 == 0
 
@@ -298,7 +284,6 @@ def demod_block_cuda(
     fm_quadri: bool = False,
     with_ctcss: bool = True,
     with_iq: bool = True,
-    block_width: int = BLOCK_WIDTH,
     trace: bool = False,
     unroll: int = 1,
     pair: bool | None = None,
@@ -307,8 +292,7 @@ def demod_block_cuda(
 
     Returns (new_state, audio [W, C], iq_out [W, C, 2], open_flags [W, C]).
     with_iq=False skips the per-sample IQ-tap stores (use when no channel has
-    IQ outputs); iq_out is then zeros.  CUDA tensors launch the kernel with
-    ``block_width`` channels a block (one of ``BLOCK_WIDTHS``) in the
+    IQ outputs); iq_out is then zeros.  CUDA tensors launch the kernel in the
     schedule ``unroll`` / ``pair`` ask for (:func:`resolve_schedule`); CPU
     tensors take the plain version, which no schedule changes.  The kernel
     has no trace output: ``trace=True`` raises on any device (trace mode is
@@ -317,36 +301,29 @@ def demod_block_cuda(
     """
     if trace:
         raise ValueError("demod_block_cuda: K1 has no trace mode; call ops.demod.demod_block(..., trace=True)")
-    unroll, pair = resolve_schedule(mags.shape[-1], block_width, unroll, pair)
+    unroll, pair = resolve_schedule(mags.shape[-1], unroll, pair)
     if mags.device.type == "cpu":
         st, audio, iq_out, open_now = demod_block(params, state, mags, iqs, fm_quadri=fm_quadri, with_ctcss=with_ctcss)
         return st, audio, (iq_out if with_iq else torch.zeros_like(iq_out)), open_now
     if mags.device.type != "cuda":
         raise ValueError(f"demod_block_cuda: unsupported device {mags.device}")
-    default = unroll == 1 and not pair
-    lib = cuda_library() if default else schedule_library()
 
     def launch(args):
         global LAUNCHES
-        if default:
-            launch_kernel(lib, args, block_width)
-        else:
-            launch_schedule(lib, args, unroll, pair)
+        launch_k1(args, unroll, pair)
         LAUNCHES += 1
         SCHEDULE_LAUNCHES[schedule_name(unroll, pair)] += 1
 
     with torch.cuda.device(mags.device):
-        return run_with(launch, lib, params, state, mags, iqs, fm_quadri, with_ctcss, with_iq)
+        return run_with(launch, _k1_library(unroll, pair), params, state, mags, iqs, fm_quadri, with_ctcss, with_iq)
 
 
 def _bind_common(lib: ctypes.CDLL) -> ctypes.CDLL:
-    lib.demod_smem_bytes.restype = ctypes.c_size_t
-    lib.demod_smem_bytes.argtypes = [ctypes.c_int]
-    if hasattr(lib, "demod_pair_smem_bytes"):
-        lib.demod_pair_smem_bytes.restype = ctypes.c_size_t
-        lib.demod_pair_smem_bytes.argtypes = []
-    lib.demod_global_scratch_rows.restype = ctypes.c_int
-    lib.demod_global_scratch_rows.argtypes = []
+    for name in ("demod_smem_bytes", "demod_pair_smem_bytes"):
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_size_t
+            fn.argtypes = []
     return lib
 
 
@@ -358,9 +335,7 @@ def cuda_library() -> ctypes.CDLL:
     _build.build_kernels(("demod.cu", "fade_tail.cu"))
     lib = _bind_common(_build.load_kernel("demod.cu"))
     lib.demod_launch.restype = ctypes.c_int
-    lib.demod_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.demod_launch_global.restype = ctypes.c_int
-    lib.demod_launch_global.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.demod_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     return lib
 
 
@@ -393,16 +368,13 @@ def host_library() -> ctypes.CDLL:
     lib.fade_tail_segment_rows.restype = ctypes.c_int
     lib.fade_tail_segment_rows.argtypes = [ctypes.c_int] * 4
     lib.demod_host_tiled.restype = ctypes.c_int
-    lib.demod_host_tiled.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.demod_host_global.restype = ctypes.c_int
-    lib.demod_host_global.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.demod_host_tiled.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     return lib
 
 
-def smem_bytes(lib: ctypes.CDLL, block_width: int) -> int:
-    """Dynamic shared memory of one block of the kernel at ``block_width``."""
-    _check_width(block_width)
-    return int(lib.demod_smem_bytes(block_width))
+def smem_bytes(lib: ctypes.CDLL) -> int:
+    """Dynamic shared memory of one block of ``BLOCK_WIDTH`` channels."""
+    return int(lib.demod_smem_bytes())
 
 
 def pair_smem_bytes(lib: ctypes.CDLL) -> int:
@@ -411,76 +383,40 @@ def pair_smem_bytes(lib: ctypes.CDLL) -> int:
     return int(lib.demod_pair_smem_bytes())
 
 
-def _global_scratch(lib: ctypes.CDLL, args, device) -> torch.Tensor:
-    return torch.empty((lib.demod_global_scratch_rows(), args.C), dtype=_F32, device=device)
+def _k1_library(unroll: int = 1, pair: bool = False) -> ctypes.CDLL:
+    """The library that holds K1 in schedule (unroll, pair): the default's,
+    :func:`cuda_library`, or :func:`schedule_library` for the others."""
+    return cuda_library() if unroll == 1 and not pair else schedule_library()
 
 
-def launch_kernel(lib: ctypes.CDLL, args, block_width: int = BLOCK_WIDTH) -> None:
-    """One launch of K1 on the current stream; raises if it was refused."""
-    _check_width(block_width)
-    rc = lib.demod_launch(ctypes.addressof(args), block_width, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"demod kernel launch failed: CUDA error {rc}")
-
-
-def launch_schedule(lib: ctypes.CDLL, args, unroll: int, pair: bool) -> None:
-    """One launch of K1 in schedule (unroll, pair) from the schedule
-    library on the current stream; raises if it was refused.  The caller
-    resolves the schedule first (:func:`resolve_schedule`)."""
-    rc = lib.demod_launch_schedule(ctypes.addressof(args), unroll, int(pair), torch.cuda.current_stream().cuda_stream)
+def launch_k1(args, unroll: int = 1, pair: bool = False) -> None:
+    """One launch of K1 in schedule (unroll, pair), resolved already
+    (:func:`resolve_schedule`), on the current stream; raises if it was
+    refused.  Counts nothing: :func:`demod_block_cuda` counts its own."""
+    lib = _k1_library(unroll, pair)
+    stream = torch.cuda.current_stream().cuda_stream
+    if unroll == 1 and not pair:
+        rc = lib.demod_launch(ctypes.addressof(args), stream)
+    else:
+        rc = lib.demod_launch_schedule(ctypes.addressof(args), unroll, int(pair), stream)
     if rc != 0:
         raise RuntimeError(f"demod kernel launch ({schedule_name(unroll, pair)}) failed: CUDA error {rc}")
 
 
-def schedule_launcher(unroll: int, pair: bool):
-    """``fn(lib, args)`` launching K1 in schedule (unroll, pair), resolved
-    already, for callers that time K1 alone around their own ``launch``
-    (``scripts/bench_scaling.py::kernel_ms``): :func:`launch_kernel` for the
-    default, the schedule library otherwise (``lib`` is then unused: the
-    two libraries take the same arguments)."""
-    if unroll == 1 and not pair:
-        return launch_kernel
-    sched = schedule_library()
-    return lambda _lib, args: launch_schedule(sched, args, unroll, pair)
-
-
-def launch_global_kernel(lib: ctypes.CDLL, args) -> None:
-    """One launch of the first, device-memory design of K1 on the current
-    stream (the yardstick; no path of the port calls it); raises if it was
-    refused.  Its scratch is freed in stream order after the launch."""
-    scratch = _global_scratch(lib, args, torch.device("cuda", torch.cuda.current_device()))
-    rc = lib.demod_launch_global(ctypes.addressof(args), scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"demod (device-memory design) launch failed: CUDA error {rc}")
-
-
-def demod_block_host(params, state, mags, iqs, *, fm_quadri=False, with_ctcss=True, with_iq=True, block_width=BLOCK_WIDTH,
-                     unroll=1, pair=None):
+def demod_block_host(params, state, mags, iqs, *, fm_quadri=False, with_ctcss=True, with_iq=True, unroll=1, pair=None):
     """Test aid: the kernel's code (``csrc/demod_step.cuh``,
     ``csrc/demod_tiles.cuh``) built for the host with g++ and run on CPU
-    tensors.  ``block_width`` 32 or 64 runs the shared-memory design as the
-    kernel does (channel groups of that width, [row][width] rings and banks,
-    input tiles), in the schedule ``unroll`` / ``pair`` resolve to, as
-    :func:`demod_block_cuda` resolves them; None runs the first,
-    device-memory design (default schedule only).  Same returns as
-    :func:`demod_block_cuda`; the schedule that ran is left in
-    ``HOST_SCHEDULE``.  Not used by the port's own paths."""
+    tensors as the kernel runs it (channel groups of ``BLOCK_WIDTH`` or
+    pair blocks, [row][width] rings and banks, input tiles), in the schedule
+    ``unroll`` / ``pair`` resolve to, as :func:`demod_block_cuda` resolves
+    them.  Same returns as :func:`demod_block_cuda`; the schedule that ran
+    is left in ``HOST_SCHEDULE``.  Not used by the port's own paths."""
     global HOST_SCHEDULE
     lib = host_library()
-    if block_width is None:
-        if unroll != 1 or pair:
-            raise ValueError("the device-memory design runs the default schedule only")
+    unroll, pair = resolve_schedule(mags.shape[-1], unroll, pair)
 
-        def launch(args):
-            scratch = _global_scratch(lib, args, mags.device)
-            lib.demod_host_global(ctypes.addressof(args), scratch.data_ptr())
-        HOST_SCHEDULE = "global"
-    else:
-        unroll, pair = resolve_schedule(mags.shape[-1], block_width, unroll, pair)
-
-        def launch(args):
-            if lib.demod_host_tiled(ctypes.addressof(args), block_width, unroll, int(pair)) != 0:
-                raise RuntimeError(f"host build: schedule {schedule_name(unroll, pair)} at block width {block_width} not built")
-        HOST_SCHEDULE = schedule_name(unroll, pair)
+    def launch(args):
+        if lib.demod_host_tiled(ctypes.addressof(args), unroll, int(pair)) != 0:
+            raise RuntimeError(f"host build: schedule {schedule_name(unroll, pair)} not built")
+    HOST_SCHEDULE = schedule_name(unroll, pair)
     return run_with(launch, lib, params, state, mags, iqs, fm_quadri, with_ctcss, with_iq)
-

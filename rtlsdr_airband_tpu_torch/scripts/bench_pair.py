@@ -57,7 +57,7 @@ def main() -> int:
                                   taps=(block.taps_re, block.taps_im))
 
     # parity: the pair schedule against the default on the flagship block
-    single, pair = (demod_cuda.resolve_schedule(C, demod_cuda.BLOCK_WIDTH, unroll, p) for p in (False, True))
+    single, pair = (demod_cuda.resolve_schedule(C, unroll, p) for p in (False, True))
     a = demod_cuda.demod_block_cuda(block.params, state, mags, iqs, unroll=unroll, pair=False)
     b = demod_cuda.demod_block_cuda(block.params, state, mags, iqs, unroll=unroll, pair=True)
     torch.cuda.synchronize()

@@ -34,23 +34,24 @@ from .bench import chain_seconds, flagship_blocks
 from .common import device_fields, pick_device
 
 
-def kernel_ms(launcher, params, state, mags, iqs, reps: int, with_ctcss: bool = True):
-    """K1 alone: CUDA events right around ``launcher(lib, args)``, so the
-    wrapper's checks, allocations and fade assembly fall outside.  Min over
-    ``reps`` after one warm-up, and the last run's outputs.  Not counted in
+def kernel_ms(params, state, mags, iqs, reps: int, with_ctcss: bool = True, unroll: int = 1, pair: bool = False):
+    """K1 alone in schedule (unroll, pair), resolved already: CUDA events
+    right around ``demod_cuda.launch_k1``, so the wrapper's checks,
+    allocations and fade assembly fall outside.  Min over ``reps`` after one
+    warm-up, and the last run's outputs.  Not counted in
     ``demod_cuda.LAUNCHES``."""
     from ..ops import demod_cuda
 
-    lib = demod_cuda.cuda_library()
     times = []
 
     def launch(args):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        launcher(lib, args)
+        demod_cuda.launch_k1(args, unroll, pair)
         end.record()
         times.append((start, end))
 
+    lib = demod_cuda.cuda_library()  # any K1 library: they take the same DemodArgs
     for _ in range(reps + 1):
         out = demod_cuda.run_with(launch, lib, params, state, mags, iqs, fm_quadri=False, with_ctcss=with_ctcss, with_iq=False)
     torch.cuda.synchronize()
@@ -77,7 +78,6 @@ def wrapper_ms(params, state, mags, iqs, reps: int) -> float:
 def demod_times(block, xs, state, reps: int = 3) -> dict:
     """K1 alone and its wrapper on each of the K blocks at the state that
     enters it, means over the blocks."""
-    from ..ops import demod_cuda
     from ..ops.channelizer import channelize_matmul
 
     kw = block.block_kwargs
@@ -86,7 +86,7 @@ def demod_times(block, xs, state, reps: int = 3) -> dict:
     for xb in xs:
         mags, iqs = channelize_matmul(xb, block.bins, block.window, hop=kw["hop"], fft_size=kw["fft_size"],
                                       n_frames=kw["n_frames"], taps=taps)
-        ms, _ = kernel_ms(demod_cuda.launch_kernel, params, st, mags, iqs, reps)
+        ms, _ = kernel_ms(params, st, mags, iqs, reps)
         k1.append(ms)
         wrap.append(wrapper_ms(params, st, mags, iqs, reps))
         st, _ = block(xb, st)

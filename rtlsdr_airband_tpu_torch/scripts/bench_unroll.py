@@ -44,20 +44,18 @@ def schedule_times(params, state, blocks, schedules, reps: int = REPS) -> dict:
     already, the state threaded by the default schedule.  Returns
     {schedule: (ms a block, list, [the outputs equal the default's on every
     block])}."""
-    from ..ops import demod_cuda
     from .bench_scaling import kernel_ms
 
     ref, st = [], state
     for mags, iqs in blocks:
-        _ms, out = kernel_ms(demod_cuda.launch_kernel, params, st, mags, iqs, reps=1)
+        _ms, out = kernel_ms(params, st, mags, iqs, reps=1)
         ref.append((st, out))
         st = out[0]
     res = {}
     for unroll, pair in schedules:
-        launcher = demod_cuda.schedule_launcher(unroll, pair)
         times, same = [], []
         for (mags, iqs), (st_in, want) in zip(blocks, ref):
-            ms, got = kernel_ms(launcher, params, st_in, mags, iqs, reps)
+            ms, got = kernel_ms(params, st_in, mags, iqs, reps, unroll=unroll, pair=pair)
             times.append(ms)
             same.append(same_outputs(want, got))
         res[unroll, pair] = (sum(times) / len(times), times, same)
@@ -81,7 +79,7 @@ def main() -> int:
          torch.as_tensor(rng.random((W, C, 2), np.float32) * 0.1, device=device))
         for _ in range(K_BLOCKS)
     ]
-    schedules = [demod_cuda.resolve_schedule(C, demod_cuda.BLOCK_WIDTH, u, False) for u in unrolls]
+    schedules = [demod_cuda.resolve_schedule(C, u, False) for u in unrolls]
     res = schedule_times(block.params, state, blocks, schedules)
     ok = True
     for (unroll, pair), (ms, times, same) in res.items():

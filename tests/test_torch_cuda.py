@@ -16,16 +16,13 @@ only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 K1 and K2 round every operation as their plain versions do: equal bit for
-bit, K1 in every output and state leaf at both of its block widths.
+bit, K1 in every output and state leaf.
 """
-
-import ctypes
 
 import numpy as np
 import pytest
 import torch
 
-from rtlsdr_airband_tpu_torch import interop
 from rtlsdr_airband_tpu_torch.app import App
 from rtlsdr_airband_tpu_torch.constants import AGC_EXTRA
 from rtlsdr_airband_tpu_torch.ops import demod_cuda
@@ -51,7 +48,6 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block_width", demod_cuda.BLOCK_WIDTHS)
 @pytest.mark.parametrize(
     "n_channels, W, fm_quadri, with_ctcss, with_iq",
     [
@@ -63,11 +59,11 @@ def cuda_device():
         (130, 131, True, True, False),
     ],
 )
-def test_kernel_matches_plain_on_card(cuda_device, block_width, n_channels, W, fm_quadri, with_ctcss, with_iq):
+def test_kernel_matches_plain_on_card(cuda_device, n_channels, W, fm_quadri, with_ctcss, with_iq):
     """Three blocks, strong then weak signal, bit for bit in every output and
-    state leaf.  C = 3, 6, 65 and 130 leave a ragged last block at both
-    widths; W = 100 ends on the iq_tail rows, W = 131 and 257 end inside a
-    32-sample input tile and cross n = 100 inside one."""
+    state leaf.  C = 3, 6, 65 and 130 leave a ragged last block; W = 100
+    ends on the iq_tail rows, W = 131 and 257 end inside a 32-sample input
+    tile and cross n = 100 inside one."""
     specs = [ChannelSpec(**k) for k in spec_population(n_channels)]
     params = make_channel_params(specs, wave_rate=16000, sample_rate=FS, center_freq=CENTER, fft_size=N, device="cpu")
     rng = np.random.default_rng(6)
@@ -78,39 +74,16 @@ def test_kernel_matches_plain_on_card(cuda_device, block_width, n_channels, W, f
         iqs = rng.normal(0, 0.5, (W, n_channels, 2)).astype(np.float32)
         m, q = torch.from_numpy(mags).to(cuda_device), torch.from_numpy(iqs).to(cuda_device)
         before = demod_cuda.LAUNCHES
-        kout = demod_cuda.demod_block_cuda(
-            params, ks, m, q, fm_quadri=fm_quadri, with_ctcss=with_ctcss, with_iq=with_iq, block_width=block_width
-        )
+        kout = demod_cuda.demod_block_cuda(params, ks, m, q, fm_quadri=fm_quadri, with_ctcss=with_ctcss, with_iq=with_iq)
         assert demod_cuda.LAUNCHES == before + 1
         pout = demod_block(params, ps, m, q, fm_quadri=fm_quadri, with_ctcss=with_ctcss)
         torch.cuda.synchronize()
         if not with_iq:
             assert not kout[2].any()
             pout = (pout[0], pout[1], torch.zeros_like(pout[2]), pout[3])
-        assert_bitwise(pout, kout, f"width {block_width} block {blk}")
+        assert_bitwise(pout, kout, f"block {blk}")
         ks, ps = kout[0], pout[0]
     assert int(ps.open_count.sum()) > 0
-
-
-@pytest.mark.cuda
-def test_unbuilt_block_width_raises_before_launch(cuda_device):
-    """A width the library was not built for is refused before any launch,
-    by the wrapper and by the library's C entry."""
-    specs = [ChannelSpec(**k) for k in SPEC_KW[:2]]
-    params = make_channel_params(specs, wave_rate=8000, sample_rate=FS, center_freq=CENTER, fft_size=N, device=cuda_device)
-    st = init_demod_state(2, torch.zeros(AGC_EXTRA, 2), torch.zeros(AGC_EXTRA, 2, 2))
-    st = interop.state_from_numpy(interop.state_to_numpy(st), device=cuda_device)
-    m, q = torch.zeros(120, 2, device=cuda_device), torch.zeros(120, 2, 2, device=cuda_device)
-    before = demod_cuda.LAUNCHES
-    with pytest.raises(ValueError, match="block width 48"):
-        demod_cuda.demod_block_cuda(params, st, m, q, block_width=48)
-    lib = demod_cuda.cuda_library()
-    stream = torch.cuda.current_stream().cuda_stream
-    codes = []
-    demod_cuda.run_with(lambda args: codes.append(lib.demod_launch(ctypes.addressof(args), 48, stream)), lib, params, st, m, q, False, True, True)
-    torch.cuda.synchronize()
-    assert codes == [1]  # cudaErrorInvalidValue: nothing launched
-    assert demod_cuda.LAUNCHES == before
 
 
 @pytest.mark.cuda

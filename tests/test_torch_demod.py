@@ -3,13 +3,13 @@
 The plain PyTorch ``demod_block``, the kernel launcher ``demod_block_cuda``
 on CPU tensors (which takes the plain version) and ``demod_block_host`` (the
 kernel's own code, csrc/demod_step.cuh and csrc/demod_tiles.cuh, built for
-the host with g++ and run in the kernel's shared-memory layout at its
-default block width) are held against the JAX package's XLA scan
-``demod_block`` and its Pallas kernel in interpret mode, on the same inputs
-fed to both frameworks through ``interop``.  tests/test_torch_demod_tiled.py
-holds that layout at both block widths and the ragged edges.  Bars as in tests/test_demod_pallas.py: audio and IQ
-within 1e-4 absolute, open flags and int/bool state exact, float state
-within 1e-4.
+the host with g++ and run in the kernel's shared-memory layout) are held
+against the JAX package's XLA scan ``demod_block`` and its Pallas kernel in
+interpret mode, on the same inputs fed to both frameworks through
+``interop``.  tests/test_torch_demod_tiled.py holds that layout at the
+ragged edges.  Bars as in tests/test_demod_pallas.py: audio and IQ within
+1e-4 absolute, open flags and int/bool state exact, float state within
+1e-4.
 """
 
 import jax.numpy as jnp

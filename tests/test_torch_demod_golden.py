@@ -2,8 +2,8 @@
 (``rtlsdr_airband_tpu.refmodel.channel_ref``): tests/test_demod_golden.py's
 AM, NFM and CTCSS scenes (``build_scene``), across block boundaries,
 through the port's plain demod and through K1's host build (the kernel's
-own code, g++) at both block widths.  Both sides consume the reference
-channelizer's output; the bars are the golden test's own
+own code, g++) in the default schedule and at unroll 4.  Both sides consume
+the reference channelizer's output; the bars are the golden test's own
 (``assert_match``): audio to 2e-5 with the squelch gating identical, IQ
 taps to 5e-4, int squelch state exact, the noise floor to rtol 1e-5 and the
 AGC to 1e-4."""
@@ -33,8 +33,8 @@ SCENES = {
 }
 DEMODS = {
     "plain": demod_block,
-    "k1_host_32": functools.partial(demod_cuda.demod_block_host, block_width=32),
-    "k1_host_64": functools.partial(demod_cuda.demod_block_host, block_width=64),
+    "k1_host_u4": functools.partial(demod_cuda.demod_block_host, unroll=4),
+    "k1_host_64": demod_cuda.demod_block_host,
 }
 
 

@@ -43,7 +43,7 @@ from rtlsdr_airband_tpu_torch.ops.demod import demod_block
 from torch_port_common import ATOL, CENTER, FS, N, active_state, assert_bitwise, assert_close, jax_flat, spec_population
 
 H100_SMEM_PER_BLOCK = 232_448
-# (unroll, pair): every schedule the card builds at the default block width
+# (unroll, pair): every schedule the card builds
 SCHEDULES = [(1, False), (2, False), (4, False), (1, True), (2, True), (4, True)]
 
 
@@ -202,7 +202,7 @@ def test_pair_at_odd_and_ragged_tile_counts(C, unroll, want):
         assert demod_cuda.HOST_SCHEDULE == want
         assert_bitwise(pout, hout, f"C={C} {want} block {blk}")
         ps, hs = pout[0], hout[0]
-    assert demod_cuda.resolve_schedule(C, demod_cuda.BLOCK_WIDTH, unroll, True) == (unroll, want.startswith("pair"))
+    assert demod_cuda.resolve_schedule(C, unroll, True) == (unroll, want.startswith("pair"))
 
 
 @pytest.mark.parametrize("call", ["demod_block_cuda", "demod_block_host"])
@@ -211,14 +211,11 @@ def test_pair_at_odd_and_ragged_tile_counts(C, unroll, want):
     [
         (dict(unroll=3), "unroll 3"),
         (dict(unroll=8), "unroll 8"),
-        (dict(unroll=2, block_width=32), "block width 32"),
-        (dict(pair=True, block_width=32), "block width 32"),
     ],
 )
 def test_unbuilt_schedule_raises(call, kw, match):
-    """An unroll the kernel is not built for, or a schedule at a block width
-    it is not built at, raises ValueError before any launch, on the CPU too:
-    nothing falls back to another schedule."""
+    """An unroll the kernel is not built for raises ValueError before any
+    launch, on the CPU too: nothing falls back to another schedule."""
     tp, st, ((m, q), _) = _small(3, 120, seed=1)
     before = demod_cuda.LAUNCHES
     with pytest.raises(ValueError, match=match):
@@ -277,19 +274,19 @@ def test_pair_block_fits_a_hopper_block():
     second 16-byte aligned; with the 64-channel block's ~189 KB it leaves one
     block an SM, the same grid at the same channel count."""
     lib = demod_cuda.host_library()
-    one = demod_cuda.smem_bytes(lib, 32)
+    one = 4 * 516 + 32 * (4 * (102 + 100 + 4 * 52 + 2 * 52 + 2 * 32 * 3) + 2 * 52)  # a 32-channel block image
     got = demod_cuda.pair_smem_bytes(lib)
     assert got == (one + 15) // 16 * 16 + one
     assert got <= H100_SMEM_PER_BLOCK
-    assert abs(got - demod_cuda.smem_bytes(lib, 64)) < 4096
+    assert abs(got - demod_cuda.smem_bytes(lib)) < 4096
 
 
 def test_schedules_leave_the_default_alone(monkeypatch):
     """Without the variable and without arguments the default schedule
     runs: the main path changes only when a caller asks."""
     monkeypatch.delenv(demod_cuda.PAIR_ENV, raising=False)
-    assert demod_cuda.resolve_schedule(8192, demod_cuda.BLOCK_WIDTH, 1, None) == (1, False)
+    assert demod_cuda.resolve_schedule(8192, 1, None) == (1, False)
     assert demod_cuda.schedule_name(1, False) == "single_u1"
     for C in (64, 8192):
-        assert demod_cuda.resolve_schedule(C, 64, 1, True) == (1, True)
+        assert demod_cuda.resolve_schedule(C, 1, True) == (1, True)
     assert os.environ.get(demod_cuda.PAIR_ENV) is None

@@ -1,14 +1,16 @@
-"""The shared-memory design of the demod kernel K1, run on the host.
+"""The demod kernel K1, run on the host.
 
-``demod_block_host(block_width=...)`` runs the kernel's own code
-(csrc/demod_step.cuh with csrc/demod_tiles.cuh, built with g++) in the
-layout the card runs: channel groups of the block width, [row][width] rings,
-Goertzel banks and tone tables, and input staged in tiles of 32 samples with
-the iq_tail / iqs switch at n = 100.  It must equal the plain ``demod_block``
-bit for bit in every output and state leaf, and both must stay within the
-port's bars of the JAX package's XLA scan and Pallas kernel (interpret mode).
-The cases cross the ragged edges: channel counts that the block width does
-not divide, W that the tile does not divide, a tile that straddles n = 100.
+``demod_block_host`` runs the kernel's own code (csrc/demod_step.cuh with
+csrc/demod_tiles.cuh, built with g++) in the layout the card runs: channel
+groups of the block width (64), [row][width] rings, Goertzel banks and tone
+tables, and input staged in tiles of 32 samples with the iq_tail / iqs
+switch at n = 100; in the default schedule and at unroll 4, whose loop
+leaves a remainder of W % 4 samples.  It must equal the plain
+``demod_block`` bit for bit in every output and state leaf, and both must
+stay within the port's bars of the JAX package's XLA scan and Pallas kernel
+(interpret mode).  The cases cross the ragged edges: channel counts that
+the block width does not divide, W that the tile does not divide, a tile
+that straddles n = 100.
 """
 
 import jax.numpy as jnp
@@ -31,10 +33,10 @@ WAVE_RATE = 16000  # above every lowpass of SPEC_KW: at the audio Nyquist the Be
 H100_SMEM_PER_BLOCK = 232_448  # bytes of shared memory one block may use on Hopper
 
 # (C, W, fm_quadri, with_iq, closes): C = 3, 65 and 130 leave a ragged last
-# group at both widths, 64 a whole one at 32 and 64; W = 100 ends on the
-# iq_tail rows, 131 and 257 leave a partial last tile and cross n = 100
-# inside tile 3 (rows 96-127); at W = 257 the CTCSS channels also close, so
-# their banks reset
+# group, 64 a whole one; W = 100 ends on the iq_tail rows, 131 and 257 leave
+# a partial last tile and cross n = 100 inside tile 3 (rows 96-127), and
+# leave 3 and 1 samples after the last trip of 4; at W = 257 the CTCSS
+# channels also close, so their banks reset
 CASES = [
     (3, 100, False, True, False),
     (64, 131, False, False, False),
@@ -71,9 +73,9 @@ def _assert_within_bars(jout, out, label):
     assert_close(jax_flat(jout[0]), interop.state_to_numpy(out[0]), f"{label}: state")
 
 
-@pytest.mark.parametrize("block_width", demod_cuda.BLOCK_WIDTHS)
+@pytest.mark.parametrize("unroll", [1, 4])
 @pytest.mark.parametrize("C, W, fm_quadri, with_iq, closes", CASES)
-def test_tiled_matches_plain_and_xla_scan(block_width, C, W, fm_quadri, with_iq, closes):
+def test_tiled_matches_plain_and_xla_scan(unroll, C, W, fm_quadri, with_iq, closes):
     """Three blocks threading the state, strong then weak: squelches open,
     the CTCSS windows decide and latch, and at W = 257 the CTCSS channels
     close and their banks reset."""
@@ -84,8 +86,8 @@ def test_tiled_matches_plain_and_xla_scan(block_width, C, W, fm_quadri, with_iq,
         m, q = torch.from_numpy(mags), torch.from_numpy(iqs)
         jout = jax_demod_block(jp, js, jnp.asarray(mags), jnp.asarray(iqs), fm_quadri=fm_quadri)
         pout = demod_block(tp, ps, m, q, fm_quadri=fm_quadri)
-        hout = demod_cuda.demod_block_host(tp, hs, m, q, fm_quadri=fm_quadri, with_iq=with_iq, block_width=block_width)
-        label = f"C={C} W={W} width {block_width} block {blk}"
+        hout = demod_cuda.demod_block_host(tp, hs, m, q, fm_quadri=fm_quadri, with_iq=with_iq, unroll=unroll)
+        label = f"C={C} W={W} unroll {unroll} block {blk}"
         assert_bitwise(pout if with_iq else (pout[0], pout[1], torch.zeros_like(pout[2]), pout[3]), hout, label)
         _assert_within_bars(jout, hout, label)
         js, ps, hs = jout[0], pout[0], hout[0]
@@ -99,11 +101,11 @@ def test_tiled_matches_plain_and_xla_scan(block_width, C, W, fm_quadri, with_iq,
         assert bool(hs.slow.enough[ct].all())  # latched
 
 
-@pytest.mark.parametrize("block_width", demod_cuda.BLOCK_WIDTHS)
-def test_tiled_matches_pallas_interpret(block_width):
+@pytest.mark.parametrize("unroll", [1, 4])
+def test_tiled_matches_pallas_interpret(unroll):
     """The JAX package's Pallas kernel in interpret mode against the tiled
-    layout, over two blocks of 131 samples at C = 65 (a ragged group at
-    both widths)."""
+    layout, over two blocks of 131 samples at C = 65 (a ragged group) with
+    the state carried."""
     C, W = 65, 131
     jp, js, tp, ts, rng = _scene(C, seed=11)
     ps = hs = ts
@@ -112,49 +114,26 @@ def test_tiled_matches_pallas_interpret(block_width):
         m, q = torch.from_numpy(mags), torch.from_numpy(iqs)
         jout = demod_block_pallas(jp, js, jnp.asarray(mags), jnp.asarray(iqs), interpret=True)
         pout = demod_block(tp, ps, m, q)
-        hout = demod_cuda.demod_block_host(tp, hs, m, q, block_width=block_width)
-        label = f"width {block_width} block {blk}"
+        hout = demod_cuda.demod_block_host(tp, hs, m, q, unroll=unroll)
+        label = f"unroll {unroll} block {blk}"
         assert_bitwise(pout, hout, label)
         _assert_within_bars(jout, hout, label)
         js, ps, hs = jout[0], pout[0], hout[0]
 
 
-def test_device_memory_design_matches_plain():
-    """The first design (rings and banks in device-memory rows), kept as the
-    card's yardstick, through the host build: equal bit for bit too."""
-    _jp, _js, tp, ts, rng = _scene(65, seed=3)
-    ps = hs = ts
-    for blk in range(2):
-        m, q = (torch.from_numpy(a) for a in _inputs(rng, 131, 65, strong=blk == 0))
-        pout = demod_block(tp, ps, m, q)
-        hout = demod_cuda.demod_block_host(tp, hs, m, q, block_width=None)
-        assert_bitwise(pout, hout, f"block {blk}")
-        ps, hs = pout[0], hout[0]
-
-
 def test_shared_memory_fits_a_hopper_block():
     """Rings 202 rows, banks 4 x 52, tone tables 2 x 52 (+ 2 x 52 mask
     bytes), two input tiles of 32 samples (mags and IQ pairs) and the
-    sin/cos table, per channel of the block."""
+    sin/cos table, per channel of the block: the 64-channel block, and the
+    32-channel tile image the pair block holds twice (the second 16-byte
+    aligned)."""
     lib = demod_cuda.host_library()
     per_channel = 4 * (102 + 100 + 4 * 52 + 2 * 52 + 2 * 32 * 3) + 2 * 52
-    for width in demod_cuda.BLOCK_WIDTHS:
-        got = demod_cuda.smem_bytes(lib, width)
-        assert got == 4 * 516 + width * per_channel
-        assert got <= H100_SMEM_PER_BLOCK
-    assert 2 * demod_cuda.smem_bytes(lib, 32) <= 228 * 1024  # two 32-channel blocks share an SM
-
-
-def test_unbuilt_block_width_is_refused():
-    _jp, _js, tp, ts, rng = _scene(3, seed=4)
-    m, q = (torch.from_numpy(a) for a in _inputs(rng, 120, 3, strong=True))
-    before = demod_cuda.LAUNCHES
-    for call in (demod_cuda.demod_block_cuda, demod_cuda.demod_block_host):
-        with pytest.raises(ValueError, match="block width 48"):
-            call(tp, ts, m, q, block_width=48)
-    with pytest.raises(ValueError, match="block width"):
-        demod_cuda.smem_bytes(demod_cuda.host_library(), 16)
-    assert demod_cuda.LAUNCHES == before
+    got = demod_cuda.smem_bytes(lib)
+    assert got == 4 * 516 + demod_cuda.BLOCK_WIDTH * per_channel
+    assert got <= H100_SMEM_PER_BLOCK
+    tile = 4 * 516 + demod_cuda.PAIR_TILE * per_channel
+    assert demod_cuda.pair_smem_bytes(lib) == (tile + 15) // 16 * 16 + tile
 
 
 def test_misaligned_iq_is_refused():

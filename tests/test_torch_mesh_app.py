@@ -151,16 +151,17 @@ def test_mesh_chain_scarce_slots_prioritize_open(scene_u8, ref_blocks):
     assert p.gather_overflow_count == 5  # 8 startup tails - 3 slots at block 0
 
 
-@pytest.mark.parametrize("block_width", [32, 64])
-def test_mesh_chain_k1_per_channel_shard(scene_u8, ref_blocks, monkeypatch, block_width):
+@pytest.mark.parametrize("unroll", [1, 2])
+def test_mesh_chain_k1_per_channel_shard(scene_u8, ref_blocks, monkeypatch, unroll):
     """The deployment configuration (the JAX package's Pallas kernel under
-    shard_map): K1's own code at each built block width, launched once a
-    channel shard on one-channel shards; every key bit for bit."""
+    shard_map): K1's own code in the default schedule and at unroll 2,
+    launched once a channel shard on one-channel shards; every key bit for
+    bit."""
     calls = []
 
     def k1(params, state, mags, iqs, **kw):
         calls.append(mags.shape[1])
-        return demod_cuda.demod_block_host(params, state, mags, iqs, block_width=block_width, **kw)
+        return demod_cuda.demod_block_host(params, state, mags, iqs, unroll=unroll, **kw)
 
     monkeypatch.setattr(port_pipeline, "demod_block_cuda", k1)
     p, got = _run(scene_u8, make_pipeline_mesh(["cpu"] * 8), chunk=2)

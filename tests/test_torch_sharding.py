@@ -205,8 +205,7 @@ def test_sharded_step_matches_unsharded_pipeline(mesh, jax_flagship, monkeypatch
     _assert_jax_bars(*got, jax_flagship["outs"][0], "mesh step against the jax mesh")
 
 
-@pytest.mark.parametrize("block_width", [64])
-def test_sharded_active_scene_opens_closes_and_retunes(mesh, jax_scene, monkeypatch, block_width):
+def test_sharded_active_scene_opens_closes_and_retunes(mesh, jax_scene, monkeypatch):
     """Squelch opens and closes across the reshard with carriers in
     different channel shards (plain AM, NFM+CTCSS, filtered AM), a
     mid-stream retune (new bins, same step), K1's host build running once a
@@ -216,7 +215,7 @@ def test_sharded_active_scene_opens_closes_and_retunes(mesh, jax_scene, monkeypa
 
     def host_k1(*a, **k):
         launches.append(a[2].shape[1])
-        return demod_cuda.demod_block_host(*a, block_width=block_width, **k)
+        return demod_cuda.demod_block_host(*a, **k)
 
     monkeypatch.setattr(port_pipeline, "demod_block_cuda", host_k1)
     C, K = 16, 12
@@ -259,10 +258,10 @@ def test_sharded_active_scene_opens_closes_and_retunes(mesh, jax_scene, monkeypa
 
 
 def test_sharded_step_multi_block_state_carry(mesh, jax_flagship, monkeypatch):
-    """Three blocks with the state carried, K1's host build at width 32 once
-    a channel shard: bit for bit against one device, within the JAX bars of
-    the JAX mesh."""
-    monkeypatch.setattr(port_pipeline, "demod_block_cuda", functools.partial(demod_cuda.demod_block_host, block_width=32))
+    """Three blocks with the state carried, K1's host build once a channel
+    shard: bit for bit against one device, within the JAX bars of the JAX
+    mesh."""
+    monkeypatch.setattr(port_pipeline, "demod_block_cuda", demod_cuda.demod_block_host)
     W, C = 128, 16
     block, x, state = build_flagship(n_channels=C, wave_batch=W, device="cpu")
     kw = block.block_kwargs
