@@ -12,7 +12,8 @@ package.  Phases, each fatal on failure:
    default schedule, K1's other schedules, K2); per kernel its registers and
    spills (ptxas), K1's dynamic shared memory a block of BLOCK_WIDTH channels
    and a pair block, its SASS memory instructions and the instructions of its
-   step loop (cuobjdump), for every schedule;
+   step loop (cuobjdump), for every schedule; the CTCSS pass's registers and
+   spills;
 3. parity: on the 8192-channel active scene (build_flagship_stream, W = 2000,
    4 blocks: squelch opens and closes on the carriers, CTCSS banks decide)
    the demod kernel K1, in its default schedule, against its plain
@@ -25,8 +26,12 @@ package.  Phases, each fatal on failure:
    with CUDA events on the same blocks and states (warm-up, min over reps):
    the block, the channelizer GEMMs, K1 alone on each block in the default
    schedule and in its other five (unroll 2 and 4, pair at unroll 1, 2 and
-   4), each with and without the CTCSS banks, each equal to the default bit
-   for bit; the plain demod on the last
+   4), each with the CTCSS banks (K1 and the CTCSS pass after it) and
+   without them, each equal to the default bit for bit; K1 alone and the
+   CTCSS pass alone at (2000, 8192) in mixed8192's and am8192's populations
+   and K1 at (2000, 2280) in vhf2280's (no CTCSS), beside K1 without the
+   banks, each split run bit for bit the launcher's, with the pass's bound;
+   the CTCSS pass one launch a K1 launch on the main path; the plain demod on the last
    block; K1's bytes bound and issue bound; the fade-tail kernel (one
    launch a K1 launch) on the last block's assembly inputs at 8192 and
    2280 channels, bit for bit against the plain assembly, alone and plain
@@ -120,7 +125,7 @@ package.  Phases, each fatal on failure:
         channels, bench_unroll at 512 and 8192, bench_bf16 at 8192 (float32
         must clear its 80 dB gate; the other precisions are evidence);
 12. the kernels line, the JSON kernels line (K1's schedules in K1's entry;
-    K2; the fade-tail kernel),
+    K2; the fade-tail kernel; the CTCSS pass),
     the card line and the result.
 """
 
@@ -207,7 +212,7 @@ def sass_ops(path, ops=("FMUL", "FADD", "FFMA")) -> dict:
 def step_loop_instructions(ins) -> int | None:
     """SASS instructions of one trip of a kernel's main loop: the widest
     backward branch's span, less the spans of the loops nested in it (K1's
-    AGC bootstrap, the Goertzel tone loops, the input tile's copy loop).
+    AGC bootstrap, the input tile's copy loop).
     It still holds both the AM and the NFM arm and the straight-line parts
     of the rare branches, which a warp's step does not all run.  None when
     the listing shows no backward branch."""
@@ -320,6 +325,12 @@ def phase_k1_build(built) -> tuple[int | None, dict]:
     for name, v in sorted(info.items()):
         log(f"K1 schedule {name}: {v['registers']} registers, {v['spill_bytes']} bytes spilled, {v['sass_instructions']} SASS "
             f"instructions, step loop body {v['step_loop_instructions']}")
+    for fn, lines in ptxas_summary(built["demod_ctcss.cu"].log).items():
+        if "demod_ctcss_kernel" in fn:
+            text = " ".join(lines)
+            regs = re.search(r"Used (\d+) registers", text)
+            spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", text))
+            log(f"CTCSS pass {fn}: {regs.group(1) if regs else '?'} registers, {spills} bytes spilled ({text})")
     return info.get("single_u1", {}).get("step_loop_instructions"), info
 
 
@@ -467,16 +478,17 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
         fade_in[:] = [v.clone() for v in (tail, raw, flags)]
         return assemble(tail, raw, flags)
 
-    demod_cuda.LAUNCHES = demod_cuda.FADE_LAUNCHES = 0
+    demod_cuda.LAUNCHES = demod_cuda.CTCSS_LAUNCHES = demod_cuda.FADE_LAUNCHES = 0
     demod_cuda.fade_and_tail = recording
     try:
         _, outs = run_chain(states_in)
     finally:
         demod_cuda.fade_and_tail = assemble
     torch.cuda.synchronize()
-    launches, fade_launches = demod_cuda.LAUNCHES, demod_cuda.FADE_LAUNCHES
-    if launches != K_BLOCKS or fade_launches != K_BLOCKS:
-        raise AssertionError(f"main path launched K1 {launches} times and the fade-tail kernel {fade_launches} times for {K_BLOCKS} blocks")
+    launches, ctcss_launches, fade_launches = demod_cuda.LAUNCHES, demod_cuda.CTCSS_LAUNCHES, demod_cuda.FADE_LAUNCHES
+    if (launches, ctcss_launches, fade_launches) != (K_BLOCKS,) * 3:  # the flagship has CTCSS channels
+        raise AssertionError(f"main path launched K1 {launches} times, the CTCSS pass {ctcss_launches} times and the "
+                             f"fade-tail kernel {fade_launches} times for {K_BLOCKS} blocks")
     for k, out in enumerate(outs):
         if tuple(out["audio"].shape) != (W, C_FLAGSHIP) or not bool(torch.isfinite(out["audio"]).all()):
             raise AssertionError(f"main path block {k}: audio not finite or misshapen")
@@ -484,7 +496,8 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
             if not bool(torch.isfinite(out[key]).all()):
                 raise AssertionError(f"main path block {k}: {key} not finite")
     active = [int(out["active"].sum().item()) for out in outs]
-    log(f"main path: {K_BLOCKS} blocks, K1 launches {launches}, fade-tail launches {fade_launches}, outputs finite, "
+    log(f"main path: {K_BLOCKS} blocks, K1 launches {launches}, CTCSS pass launches {ctcss_launches}, "
+        f"fade-tail launches {fade_launches}, outputs finite, "
         f"channels active per block {active}")
 
     # ---- timings, on the main path's own blocks and states ----
@@ -514,6 +527,7 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
     bound_ms, bound_by, how = demod_bound(params, states_in[-1], last_mags)
     issue_ms = W * step_instructions / (clock_mhz * 1e3) if step_instructions else None
     fade = fade_tail_timings(*fade_in, card)
+    split = ctcss_split_timings(device, card)
     t = dict(
         block_ms=block_ms,
         channel_msps=C_FLAGSHIP * W * hop / block_s / 1e6,
@@ -526,8 +540,10 @@ def phase_main_path(device, card: str, clock_mhz: float, step_instructions: int 
         bound_by=bound_by,
         issue_bound_ms=issue_ms,
         launches=launches,
+        ctcss_launches=ctcss_launches,
         fade_launches=fade_launches,
         fade=fade,
+        ctcss_split=split,
         flagship=(block, x, state0),
         schedule_ms={d: mean[d, True] for d in k1_schedules() if d != default},
         schedule_no_ctcss_ms={d: mean[d, False] for d in k1_schedules() if d != default},
@@ -591,6 +607,122 @@ def fade_tail_timings(tail, raw, flags, card: str) -> dict:
         log(f"fade-tail kernel at (W, C, A) = ({W}, {C}, {A}) [{card}]: {ms:.4f} ms alone, plain assembly {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms (bytes: 10 W C + 8 A C = {10 * W * C + 8 * A * C} B); {marks} close marks, "
             f"audio, new tail and open flags equal bit for bit")
+    return r
+
+
+SPLIT_SCENES = (  # (label, channels, population, with_ctcss): the cells' populations
+    ("mixed8192", C_FLAGSHIP, "mixed", True),
+    ("am8192", C_FLAGSHIP, "am_one_ctcss", True),
+    ("vhf2280", 2280, "am", False),
+)
+
+
+def split_scene(population: str, C: int, device, seed: int):
+    """(params, state, mags, iqs) of a block of W_FLAGSHIP samples at C
+    channels in the main path's order: ``mixed`` the flagship's four kinds
+    (a quarter NFM with CTCSS), ``am_one_ctcss`` AM with channel 0 on CTCSS
+    100 Hz (am8192's), ``am`` AM alone (vhf2280's).  Every channel's air is
+    strong, so every squelch opens; the CTCSS channels start open with
+    their windows 40 (fast) and 100 (slow) samples from their end, so both
+    decide and the fast bank stops: the most the banks can cost."""
+    import torch
+
+    from rtlsdr_airband_tpu_torch.models.flagship import CENTER_FREQ, flagship_specs
+    from rtlsdr_airband_tpu_torch.ops.demod import OPEN
+    from rtlsdr_airband_tpu_torch.ops.params import ChannelSpec, cost_group_permutation, init_demod_state, make_channel_params
+
+    specs = flagship_specs(C)
+    if population != "mixed":
+        specs = [ChannelSpec(frequency=sp.frequency, modulation="am", ctcss=100.0 if population == "am_one_ctcss" and i == 0 else 0.0)
+                 for i, sp in enumerate(specs)]
+    specs = [specs[i] for i in cost_group_permutation(specs)]
+    params = make_channel_params(specs, wave_rate=16000, sample_rate=2_560_000, center_freq=CENTER_FREQ, fft_size=512, device=device)
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    st = init_demod_state(C, f32(np.abs(rng.normal(0, 1.0, (100, C)))), f32(rng.normal(0, 0.5, (100, C, 2))))
+    ct = params.ctcss_enabled
+    cur = torch.where(ct, torch.full_like(st.cur, OPEN), st.cur)
+
+    def left(b, name: str, samples: int):  # the bank's window `samples` from its end on the CTCSS channels
+        return b._replace(count=torch.where(ct, getattr(params, f"{name}_window") - samples, b.count))
+
+    fast, slow = left(st.fast, "fast", 40), left(st.slow, "slow", 100)
+    st = st._replace(noise_floor=torch.full_like(st.noise_floor, 0.3), pre_full=torch.full_like(st.pre_full, 1.2),
+                     pre_capped=torch.full_like(st.pre_capped, 1.2), cur=cur, nxt=cur.clone(), fast=fast, slow=slow)
+    mags = f32(np.abs(rng.normal(0, 1.0, (W_FLAGSHIP, C)) + 3.0))
+    iqs = f32(rng.normal(0, 0.5, (W_FLAGSHIP, C, 2)))
+    return params, st, mags, iqs
+
+
+def demod_split_ms(params, state, mags, iqs, with_ctcss: bool, reps: int = 5) -> tuple[float, float | None, tuple]:
+    """K1 alone (default schedule) and the CTCSS pass alone on one block:
+    CUDA events right around each launch, min over ``reps`` after one
+    warm-up; the pass None when ``with_ctcss`` is off (not launched).
+    Returns (k1_ms, pass_ms, the last run's outputs)."""
+    import ctypes
+
+    import torch
+
+    from rtlsdr_airband_tpu_torch.ops import demod_cuda
+
+    lib, plib = demod_cuda.cuda_library(), demod_cuda.ctcss_library()
+    times = []
+
+    def launch(args):
+        stream = torch.cuda.current_stream().cuda_stream
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        if lib.demod_launch(ctypes.addressof(args), stream):
+            raise RuntimeError("K1 launch failed")
+        ev[1].record()
+        if with_ctcss and plib.demod_ctcss_launch(ctypes.addressof(args), stream):
+            raise RuntimeError("CTCSS pass launch failed")
+        ev[2].record()
+        times.append(ev)
+
+    for _ in range(reps + 1):
+        out = demod_cuda.run_with(launch, lib, params, state, mags, iqs, False, with_ctcss, False)
+    torch.cuda.synchronize()
+    k1 = min(e[0].elapsed_time(e[1]) for e in times[1:])
+    ps = min(e[1].elapsed_time(e[2]) for e in times[1:]) if with_ctcss else None
+    return k1, ps, out
+
+
+def ctcss_pass_bound(n_ctcss: int, tones: int) -> tuple[float, str, str]:
+    """(bound_ms, bound_by, reckoning) of the CTCSS pass on a block of
+    W_FLAGSHIP samples with every squelch open.  Bytes: each CTCSS channel's
+    audio and flag bytes read and written (10 W), and its two banks' q1 and q2
+    read and written and coefficients and masks read (2 tones (16 + 4 + 1)).
+    Operations: 2 * 3 flop a tone a sample in both banks."""
+    nbytes = n_ctcss * (10 * W_FLAGSHIP + 2 * tones * 21)
+    flops = 2 * 3 * tones * W_FLAGSHIP * n_ctcss
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    how = f"{nbytes} B / 3.35 TB/s = {bytes_ms:.4f} ms; {flops} flop / 67 TFLOP/s = {ops_ms:.4f} ms"
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), how
+
+
+def ctcss_split_timings(device, card: str) -> dict:
+    """K1 alone and the CTCSS pass alone in each of SPLIT_SCENES, beside K1
+    with the banks off (``kernel_ms``, with_ctcss False); the split run's
+    outputs against ``demod_block_cuda``'s (K1 and the pass through
+    ``launch_k1``) bit for bit.  Keyed by label."""
+    from rtlsdr_airband_tpu_torch.ops import demod_cuda
+    from rtlsdr_airband_tpu_torch.scripts.bench_scaling import kernel_ms
+
+    r = {}
+    for k, (label, C, population, with_ctcss) in enumerate(SPLIT_SCENES):
+        params, st, mags, iqs = split_scene(population, C, device, seed=31 + k)
+        k1, ps, out = demod_split_ms(params, st, mags, iqs, with_ctcss)
+        no_banks, _ = kernel_ms(params, st, mags, iqs, reps=5, with_ctcss=False)
+        want = demod_cuda.demod_block_cuda(params, st, mags, iqs, with_ctcss=with_ctcss, with_iq=False)
+        if not same_bits(want, out):
+            raise AssertionError(f"{label}: K1 and the CTCSS pass launched apart differ from launch_k1's")
+        n_ct = int(params.ctcss_enabled.sum())
+        bound_ms, bound_by, how = ctcss_pass_bound(n_ct, params.fast_mask.shape[0])
+        r[label] = dict(C=C, n_ctcss=n_ct, k1_ms=k1, pass_ms=ps, k1_no_banks_ms=no_banks, pass_bound_ms=bound_ms, pass_bound_by=bound_by)
+        log(f"demod split [{card}] {label} (W, C) = ({W_FLAGSHIP}, {C}), {n_ct} CTCSS channels, every squelch open: K1 alone "
+            f"{k1:.4f} ms, CTCSS pass alone {'not launched' if ps is None else f'{ps:.4f} ms'}, K1 without the banks "
+            f"{no_banks:.4f} ms; bit for bit the launcher's; the pass's bound ({bound_by}): {how}")
     return r
 
 
@@ -1814,7 +1946,9 @@ def main() -> int:
         f"K1 in the drivers: {dr['launches']} launches; K1's pair schedule {sc['pair_stream_launches']} launches on the "
         f"stream with {PAIR_STREAM_BLOCKS} blocks, every schedule bit for bit; fade-tail (csrc/fade_tail.cu) launches "
         f"{t['fade_launches']} on the main path, bit for bit against the plain assembly, " + ", ".join(
-            f"{f['ms']:.4f} ms alone at {C} channels (plain {f['plain_ms']:.4f}, bound {f['bound_ms']:.4f})" for C, f in t["fade"].items()))
+            f"{f['ms']:.4f} ms alone at {C} channels (plain {f['plain_ms']:.4f}, bound {f['bound_ms']:.4f})" for C, f in t["fade"].items())
+        + f"; CTCSS pass (csrc/demod_ctcss.cu) launches {t['ctcss_launches']} on the main path, " + ", ".join(
+            f"{v['pass_ms']:.4f} ms alone in {k} (bound {v['pass_bound_ms']:.4f})" for k, v in t["ctcss_split"].items() if v["pass_ms"] is not None))
     log(json.dumps({"kernels": [{
         "name": "demod",
         "route": "cuda",
@@ -1835,6 +1969,7 @@ def main() -> int:
         "latency_bound_ms": t["issue_bound_ms"],
         "library_ms": None,
         "schedules": sc["schedules"],
+        "ctcss_split": t["ctcss_split"],
     }, {
         "name": "chain_probe",
         "route": "cuda",
@@ -1860,6 +1995,19 @@ def main() -> int:
         "bound_ms": t["fade"][C_FLAGSHIP]["bound_ms"],
         "bound_by": "bytes",
         "by_channels": {str(C): f for C, f in t["fade"].items()},
+        "library_ms": None,
+    }, {
+        "name": "demod_ctcss",
+        "route": "cuda",
+        "source": "rtlsdr_airband_tpu_torch/csrc/demod_ctcss.cu",
+        "replaces": "rtlsdr_airband_tpu/ops/demod_pallas.py:499 (the CTCSS banks of K1's step)",
+        "launches": t["ctcss_launches"],
+        "max_abs_err": 0.0,
+        "ms": t["ctcss_split"]["mixed8192"]["pass_ms"],
+        "plain_ms": None,
+        "bound_ms": t["ctcss_split"]["mixed8192"]["pass_bound_ms"],
+        "bound_by": t["ctcss_split"]["mixed8192"]["pass_bound_by"],
+        "by_scene": t["ctcss_split"],
         "library_ms": None,
     }]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

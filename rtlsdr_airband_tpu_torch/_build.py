@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 )
 GXX_FLAGS = ("-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
 
-KERNEL_SOURCES = ("demod.cu", "fade_tail.cu", "demod_sched.cu", "chain_probe.cu")
+KERNEL_SOURCES = ("demod.cu", "demod_ctcss.cu", "fade_tail.cu", "demod_sched.cu", "chain_probe.cu")
 
 
 @dataclass

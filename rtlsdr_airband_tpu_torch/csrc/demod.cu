@@ -6,10 +6,11 @@
 // reference's whole per-sample demod loop - squelch FSM, noise-floor EMA,
 // capped MAs and the 102-slot ring, derotation with the 24-bit phase and the
 // interpolated sin/cos table, complex Bessel lowpass, AM envelope/AGC with
-// the squelch-open bootstrap, NFM discriminator and de-emphasis, dual 52-tone
-// Goertzel CTCSS banks, notch, ampfactor and clamp.  The per-channel
-// arithmetic lives in demod_step.cuh, where it keeps its data in
-// demod_tiles.cuh.
+// the squelch-open bootstrap, NFM discriminator and de-emphasis, notch,
+// ampfactor and clamp.  A CTCSS channel's dual 52-tone Goertzel banks, its
+// tone gate and what the gate feeds are the CTCSS pass's (demod_ctcss.cu),
+// launched after K1.  The per-channel arithmetic lives in demod_step.cuh,
+// where it keeps its data in demod_tiles.cuh.
 //
 // What bounds it on this card: at the flagship shape (W = 2000, C = 8192)
 // it reads about 3 * 4 * W * C bytes (mags plus the IQ pairs, ~197 MB) and
@@ -22,7 +23,7 @@
 // round trips to L2 and DRAM, and an open CTCSS channel on 2 x 52 of them.
 //
 // What this design does about it: a block of BW = BLOCK_WIDTH (64) channels
-// keeps its rings, banks and tone tables in dynamic shared memory as
+// keeps its rings in dynamic shared memory as
 // [row][BW], the channel fastest, so each warp access touches 32 banks once
 // and waits ~30 cycles, not an L2 round trip.  The input is staged into
 // shared memory a tile of 32 samples ahead with cp.async (4- and 8-byte
@@ -30,10 +31,12 @@
 // at n = 100 row by row), so no step waits on device memory.  Each thread
 // touches only its own column, so the only barrier is the sin/cos table's.
 // Outputs are stored as before; nothing in the step reads device memory
-// after them.  The scalar state stays in registers; rare work (AGC
-// bootstrap, banks, window decision) stays per-thread branches;
-// cost_group_permutation keeps warps nearly uniform.  About 185 KB a block,
-// so one block an SM.  Built with --fmad=false and without fast math, so
+// after them.  The scalar state stays in registers; rare work (the AGC
+// bootstrap) stays a per-thread branch; cost_group_permutation keeps warps
+// nearly uniform.  The banks left K1 because one thread stepped up to 104
+// tones a sample on its channel's chain, so an open CTCSS channel set the
+// pace of the whole kernel; the pass spreads them over a warp's lanes.
+// About 103 KB a block.  Built with --fmad=false and without fast math, so
 // each operation rounds as the plain PyTorch version's does and the outputs
 // are equal bit for bit.
 //

@@ -44,7 +44,7 @@ __global__ void __launch_bounds__(demod::PAIR_TILE) demod_pair_kernel(const __gr
 
 // Launch `kernel` on `blocks` blocks of `threads` with `bytes` of dynamic
 // shared memory, at the largest shared-memory carveout (one block
-// takes about 185 KB of an SM's 228).
+// takes about 103 KB of an SM's 228).
 template <class Kernel>
 cudaError_t launch(Kernel kernel, int blocks, int threads, size_t bytes, const DemodArgs& a, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));

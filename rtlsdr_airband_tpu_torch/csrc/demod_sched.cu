@@ -10,7 +10,7 @@
 // - pair: a block of two 32-channel tiles on 32 threads, thread t stepping
 //   channel base + t and base + 32 + t together, sample by sample (both
 //   samples taken, A's step, B's step), with U = 1, 2 or 4.  Each tile keeps the shared-memory image of a 32-channel
-//   block (about 96 KB, so 187 KB a block: the 64-channel block's shared
+//   block (about 52 KB, so 105 KB a block: the 64-channel block's shared
 //   memory and grid), and each thread stages both channels' input tiles in
 //   one cp.async group.  One warp with two independent chains against the
 //   default's two warps with one: whether the card overlaps the two chains

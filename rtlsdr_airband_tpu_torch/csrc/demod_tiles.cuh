@@ -1,15 +1,12 @@
 // Where the demod step (demod_step.cuh) keeps its data in K1.
 //
-// demod_tiled: a block of BW channels keeps each channel's rings, Goertzel
-// banks and tone tables in dynamic shared memory laid out [row][BW], the
-// channel fastest, and stages its input in tiles of TILE samples, tile k+1
-// copying in (cp.async) while the block steps through tile k.  Every thread
-// stages and reads only its own channel's column, so no barrier is needed
-// past the sin/cos table's.  The tone tables sit in shared memory rather
-// than behind the read-only cache (__ldg): the step then reads device memory
-// nowhere, and no tone load can miss and stall the 52-tone loop; they cost
-// 33 KB a 64-channel block, which still fits, and are copied in only for
-// CTCSS channels.
+// demod_tiled: a block of BW channels keeps each channel's rings in dynamic
+// shared memory laid out [row][BW], the channel fastest, and stages its
+// input in tiles of TILE samples, tile k+1 copying in (cp.async) while the
+// block steps through tile k.  Every thread stages and reads only its own
+// channel's column, so no barrier is needed past the sin/cos table's.  The
+// Goertzel banks and their tone tables are the CTCSS pass's, in its
+// registers (demod_ctcss.cuh), not here.
 //
 // The schedules (demod_sched.cu): U samples a loop trip (demod_channel's
 // U), and the pair block, two tiles of PAIR_TILE channels on one tile's
@@ -63,18 +60,15 @@ DEMOD_HD const float* iq_at(const float* iqs, const float* iq_tail, size_t C, in
 }
 
 // Dynamic shared memory of one block of BW channels.  Offsets in floats,
-// except `mask` and `bytes`, in bytes.  Each array is [rows][BW].
+// except `bytes`.  Each array is [rows][BW].
 template <int BW>
 struct SmemLayout {
   static constexpr int sin_lut = 0, cos_lut = LUT_ENTRIES;
   static constexpr int sq = (2 * LUT_ENTRIES + 3) / 4 * 4;  // 16-byte aligned from here on
   static constexpr int dl = sq + SQ_BUF * BW;
-  static constexpr int banks = dl + AGC_EXTRA * BW;       // fast q1, fast q2, slow q1, slow q2
-  static constexpr int coeff = banks + 4 * MAX_TONES * BW;  // fast, slow
-  static constexpr int mags = coeff + 2 * MAX_TONES * BW;   // two tiles [TILE][BW]
-  static constexpr int iq = mags + 2 * TILE * BW;           // two tiles [TILE][BW][2]
-  static constexpr int mask = 4 * (iq + 2 * TILE * BW * 2);  // bytes: fast, slow [MAX_TONES][BW] u8
-  static constexpr size_t bytes = mask + 2 * MAX_TONES * BW;
+  static constexpr int mags = dl + AGC_EXTRA * BW;  // two tiles [TILE][BW]
+  static constexpr int iq = mags + 2 * TILE * BW;   // two tiles [TILE][BW][2]
+  static constexpr size_t bytes = 4 * (iq + 2 * TILE * BW * 2);
 };
 
 // Channels a block of the default schedule and of the unroll schedules.
@@ -158,25 +152,11 @@ struct PairTileSource {
   }
 };
 
-// Channel c's column in a block image laid out by SmemLayout<BW>; copies its
-// tone tables in when it is a CTCSS channel (only those banks read them).
+// The rings' column of lane `lane` in a block image laid out by SmemLayout<BW>.
 template <int BW>
-DEMOD_HD Column tiled_column(const DemodArgs& a, int c, int lane, float* smem) {
+DEMOD_HD Column tiled_column(int lane, float* smem) {
   using L = SmemLayout<BW>;
-  const size_t C = (size_t)a.C;
-  float* coeff = smem + L::coeff + lane;
-  uint8_t* mask = reinterpret_cast<uint8_t*>(smem) + L::mask + lane;
-  if (a.with_ctcss && a.p_ctcss_enabled[c]) {
-    for (int t = 0; t < MAX_TONES; ++t) {
-      coeff[t * BW] = a.p_fast_coeff[t * C + c];
-      coeff[(MAX_TONES + t) * BW] = a.p_slow_coeff[t * C + c];
-      mask[t * BW] = a.p_fast_mask[t * C + c];
-      mask[(MAX_TONES + t) * BW] = a.p_slow_mask[t * C + c];
-    }
-  }
-  float* q = smem + L::banks + lane;
-  return Column{smem + L::sq + lane, smem + L::dl + lane, q, q + MAX_TONES * BW, q + 2 * MAX_TONES * BW,
-                q + 3 * MAX_TONES * BW, coeff, coeff + MAX_TONES * BW, mask, mask + MAX_TONES * BW, (size_t)BW};
+  return Column{smem + L::sq + lane, smem + L::dl + lane, (size_t)BW};
 }
 
 template <int BW>
@@ -191,7 +171,7 @@ DEMOD_HD TileSource<BW> tile_source(const DemodArgs& a, int c, int lane, float* 
 template <int BW, int U>
 DEMOD_HD void demod_tiled(const DemodArgs& a, int c, int lane, float* smem) {
   using L = SmemLayout<BW>;
-  const Column col = tiled_column<BW>(a, c, lane, smem);
+  const Column col = tiled_column<BW>(lane, smem);
   TileSource<BW> src = tile_source<BW>(a, c, lane, smem);
   src.fetch(0);
   demod_channel<U>(a, c, smem + L::sin_lut, smem + L::cos_lut, col, src);
@@ -210,8 +190,8 @@ DEMOD_HD void demod_tiled_pair(const DemodArgs& a, int c, int lane, float* smem)
     return;
   }
   float* smemB = smem + PairLayout::image;
-  const Column colA = tiled_column<PAIR_TILE>(a, c, lane, smem);
-  const Column colB = tiled_column<PAIR_TILE>(a, cB, lane, smemB);
+  const Column colA = tiled_column<PAIR_TILE>(lane, smem);
+  const Column colB = tiled_column<PAIR_TILE>(lane, smemB);
   PairTileSource<PAIR_TILE> src{tile_source<PAIR_TILE>(a, c, lane, smem), tile_source<PAIR_TILE>(a, cB, lane, smemB)};
   src.fetch(0);
   demod_pair<U>(a, c, cB, smem + L::sin_lut, smem + L::cos_lut, colA, colB, src);

@@ -19,6 +19,8 @@
 
 #include <stdint.h>
 
+#include "demod_step.cuh"
+
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define FADE_HD __host__ __device__ __forceinline__
@@ -29,7 +31,7 @@
 struct FadeTailArgs {
   const float* tail;     // [A, C] the carried tail
   const float* raw;      // [W, C] K1's audio before the assembly
-  const uint8_t* flags;  // [W, C] K1's flag bytes: bit 0 open, bit 1 AM close mark
+  const uint8_t* flags;  // [W, C] K1's flag bytes (demod::flag): OPEN, CLOSE_MARK
   const float* decay;    // [A] the fade factors 0.94^i
   float* audio;          // [W, C]
   float* new_tail;       // [A, C]
@@ -43,7 +45,6 @@ struct FadeTailArgs {
 
 namespace fade_tail {
 
-constexpr uint8_t OPEN_BIT = 1, MARK_BIT = 2;
 constexpr int ROWS_AHEAD = 8;         // rows whose loads a thread issues before it uses them
 constexpr int THREADS = 128;          // threads a block, along the channels
 constexpr int THREADS_PER_SM = 1024;  // the threads a launch aims at an SM
@@ -74,7 +75,7 @@ FADE_HD void segment(const FadeTailArgs& a, const float* decay, int c, int m0, i
   // the look-back: the latest mark in [m0 - (A - 1), m0), and its raw value
   const int hi = m0 < W ? m0 : W;
   for (int n = (m0 - (A - 1) > 0 ? m0 - (A - 1) : 0); n < hi; ++n)
-    if (ld(a.flags + n * C + c) & MARK_BIT) last = n;
+    if (ld(a.flags + n * C + c) & demod::flag::CLOSE_MARK) last = n;
   if (last >= 0) base = full_at(a, last, c);
 
   // the rows, ROWS_AHEAD loads at a time: none depends on the carried mark
@@ -100,11 +101,11 @@ FADE_HD void segment(const FadeTailArgs& a, const float* decay, int c, int m0, i
       const float out = age < A ? base * decay[age] : v[r];
       if (row < W) {
         a.audio[row * C + c] = out;
-        a.open_now[row * C + c] = f[r] & OPEN_BIT;
+        a.open_now[row * C + c] = f[r] & demod::flag::OPEN;
       } else {
         a.new_tail[(row - W) * C + c] = out;
       }
-      if (f[r] & MARK_BIT) last = row, base = v[r];  // a mark acts from the next row on
+      if (f[r] & demod::flag::CLOSE_MARK) last = row, base = v[r];  // a mark acts from the next row on
     }
   }
 }

@@ -6,9 +6,12 @@ included, ``interpret`` left out.  For CUDA tensors ``demod_block_cuda``
 launches the kernel or raises; for CPU tensors it runs the plain PyTorch
 version, ``ops.demod.demod_block``.
 
-The kernel keeps a block's rings, Goertzel banks and input tiles in shared
-memory, ``BLOCK_WIDTH`` channels a block.  :func:`launch_k1` launches it in
-any schedule.
+The kernel keeps a block's rings and input tiles in shared memory,
+``BLOCK_WIDTH`` channels a block.  A CTCSS channel's Goertzel banks, tone
+gate and what the gate feeds run after it in the CTCSS pass
+(``csrc/demod_ctcss.cu``, one warp a channel, the tones over its lanes),
+launched on the same stream when ``with_ctcss`` is on.  :func:`launch_k1`
+launches both, K1 in any schedule.
 
 The schedules (``csrc/demod_sched.cu``, a library of their own built at
 first use): ``unroll`` U in ``UNROLLS`` steps U samples a loop trip;
@@ -24,7 +27,7 @@ The kernel reads the state from the input tensors and writes a fresh state,
 so the caller's state is never modified.  ``LAUNCHES`` counts kernel
 launches, so a run can show that its main path went through the kernel;
 ``SCHEDULE_LAUNCHES`` counts them by schedule (``schedule_name``), so a run
-can show which schedule ran.
+can show which schedule ran; ``CTCSS_LAUNCHES`` counts the CTCSS pass's.
 
 After K1 the block is assembled by ``fade_and_tail``: the AM close fade
 rewrite, the carried tail and the open flags.  For CUDA tensors it launches
@@ -48,6 +51,7 @@ from .demod import FADE_DECAY, SQ_BUF, ChannelParams, CtcssState, DemodState, _f
 from .goertzel import MAX_TONES
 
 LAUNCHES = 0
+CTCSS_LAUNCHES = 0  # CTCSS pass launches, one a K1 launch with with_ctcss
 FADE_LAUNCHES = 0  # fade-tail kernel launches; the plain assembly never counts
 SCHEDULE_LAUNCHES: collections.Counter = collections.Counter()
 HOST_SCHEDULE = None  # the schedule demod_block_host ran last (a test aid)
@@ -309,9 +313,10 @@ def demod_block_cuda(
         raise ValueError(f"demod_block_cuda: unsupported device {mags.device}")
 
     def launch(args):
-        global LAUNCHES
+        global LAUNCHES, CTCSS_LAUNCHES
         launch_k1(args, unroll, pair)
         LAUNCHES += 1
+        CTCSS_LAUNCHES += int(bool(args.with_ctcss))  # launch_k1's own condition for the pass
         SCHEDULE_LAUNCHES[schedule_name(unroll, pair)] += 1
 
     with torch.cuda.device(mags.device):
@@ -330,9 +335,9 @@ def _bind_common(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.cache
 def cuda_library() -> ctypes.CDLL:
     """The nvcc-built ``csrc/demod.cu``, built at first use and kept; the
-    fade-tail kernel that follows it on every block builds beside it, in
+    CTCSS pass and the fade-tail kernel that follow it build beside it, in
     the same parallel call."""
-    _build.build_kernels(("demod.cu", "fade_tail.cu"))
+    _build.build_kernels(("demod.cu", "demod_ctcss.cu", "fade_tail.cu"))
     lib = _bind_common(_build.load_kernel("demod.cu"))
     lib.demod_launch.restype = ctypes.c_int
     lib.demod_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -346,6 +351,16 @@ def schedule_library() -> ctypes.CDLL:
     lib = _bind_common(_build.load_kernel("demod_sched.cu"))
     lib.demod_launch_schedule.restype = ctypes.c_int
     lib.demod_launch_schedule.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+@functools.cache
+def ctcss_library() -> ctypes.CDLL:
+    """The nvcc-built ``csrc/demod_ctcss.cu`` (built with K1's library by
+    :func:`cuda_library`, or here at first use) and kept."""
+    lib = _build.load_kernel("demod_ctcss.cu")
+    lib.demod_ctcss_launch.restype = ctypes.c_int
+    lib.demod_ctcss_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     return lib
 
 
@@ -391,8 +406,10 @@ def _k1_library(unroll: int = 1, pair: bool = False) -> ctypes.CDLL:
 
 def launch_k1(args, unroll: int = 1, pair: bool = False) -> None:
     """One launch of K1 in schedule (unroll, pair), resolved already
-    (:func:`resolve_schedule`), on the current stream; raises if it was
-    refused.  Counts nothing: :func:`demod_block_cuda` counts its own."""
+    (:func:`resolve_schedule`), on the current stream, then, when
+    ``args.with_ctcss`` is set, one of the CTCSS pass on the same stream:
+    the whole demod.  Raises if either was refused.  Counts nothing:
+    :func:`demod_block_cuda` counts its own."""
     lib = _k1_library(unroll, pair)
     stream = torch.cuda.current_stream().cuda_stream
     if unroll == 1 and not pair:
@@ -401,15 +418,20 @@ def launch_k1(args, unroll: int = 1, pair: bool = False) -> None:
         rc = lib.demod_launch_schedule(ctypes.addressof(args), unroll, int(pair), stream)
     if rc != 0:
         raise RuntimeError(f"demod kernel launch ({schedule_name(unroll, pair)}) failed: CUDA error {rc}")
+    if args.with_ctcss:
+        rc = ctcss_library().demod_ctcss_launch(ctypes.addressof(args), stream)
+        if rc != 0:
+            raise RuntimeError(f"CTCSS pass launch failed: CUDA error {rc}")
 
 
 def demod_block_host(params, state, mags, iqs, *, fm_quadri=False, with_ctcss=True, with_iq=True, unroll=1, pair=None):
     """Test aid: the kernel's code (``csrc/demod_step.cuh``,
     ``csrc/demod_tiles.cuh``) built for the host with g++ and run on CPU
     tensors as the kernel runs it (channel groups of ``BLOCK_WIDTH`` or
-    pair blocks, [row][width] rings and banks, input tiles), in the schedule
+    pair blocks, [row][width] rings, input tiles), in the schedule
     ``unroll`` / ``pair`` resolve to, as :func:`demod_block_cuda` resolves
-    them.  Same returns as :func:`demod_block_cuda`; the schedule that ran
+    them; then, with ``with_ctcss``, the CTCSS pass's code
+    (``csrc/demod_ctcss.cuh``) tile by tile as a warp runs it.  Same returns as :func:`demod_block_cuda`; the schedule that ran
     is left in ``HOST_SCHEDULE``.  Not used by the port's own paths."""
     global HOST_SCHEDULE
     lib = host_library()

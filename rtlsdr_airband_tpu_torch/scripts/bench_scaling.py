@@ -35,9 +35,10 @@ from .common import device_fields, pick_device
 
 
 def kernel_ms(params, state, mags, iqs, reps: int, with_ctcss: bool = True, unroll: int = 1, pair: bool = False):
-    """K1 alone in schedule (unroll, pair), resolved already: CUDA events
-    right around ``demod_cuda.launch_k1``, so the wrapper's checks,
-    allocations and fade assembly fall outside.  Min over ``reps`` after one
+    """K1 alone in schedule (unroll, pair), resolved already, with the CTCSS
+    pass after it when ``with_ctcss``: CUDA events right around
+    ``demod_cuda.launch_k1``, so the wrapper's checks, allocations and fade
+    assembly fall outside.  Min over ``reps`` after one
     warm-up, and the last run's outputs.  Not counted in
     ``demod_cuda.LAUNCHES``."""
     from ..ops import demod_cuda

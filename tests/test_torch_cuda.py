@@ -4,7 +4,9 @@ on the card (chunked dispatch with a copy stream equal to single-block
 dispatch, K1 once a block) and the FFT channelizer's precision; the App
 from a libconfig file (K1 once a block, per-device demod threads equal to
 one thread bit for bit, no multi-GPU mesh); K1 refusing trace mode, which
-the plain version has; K1's unroll and pair schedules against the default at
+the plain version has; K1 and the CTCSS pass after it against the plain
+version at 8192 channels in mixed8192's and am8192's populations, and the
+pass's launch counter; K1's unroll and pair schedules against the default at
 8192 channels and the pair rule at an odd tile count; the fade-tail kernel
 against the plain assembly, once a K1 launch; scripts/bench.py's,
 bench_pair.py's and bench_unroll.py's lines on the card.
@@ -84,6 +86,64 @@ def test_kernel_matches_plain_on_card(cuda_device, n_channels, W, fm_quadri, wit
         assert_bitwise(pout, kout, f"block {blk}")
         ks, ps = kout[0], pout[0]
     assert int(ps.open_count.sum()) > 0
+
+
+def _population_8192(name: str) -> list:
+    """8192 channels in the main path's order: ``mixed`` is the flagship's
+    four kinds (a quarter NFM with CTCSS, grouped last by
+    cost_group_permutation), ``am_one_ctcss`` am8192's (AM, channel 0 with
+    CTCSS 100 Hz)."""
+    from rtlsdr_airband_tpu_torch.models.flagship import flagship_specs
+    from rtlsdr_airband_tpu_torch.ops.params import cost_group_permutation
+
+    specs = flagship_specs(8192)
+    if name == "am_one_ctcss":
+        specs = [ChannelSpec(frequency=s.frequency, modulation="am", ctcss=100.0 if i == 0 else 0.0) for i, s in enumerate(specs)]
+    return [specs[i] for i in cost_group_permutation(specs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("population", ["mixed", "am_one_ctcss"])
+def test_k1_and_ctcss_pass_match_plain_at_8192(cuda_device, population):
+    """K1 and the CTCSS pass after it at 8192 channels and W = 2000, in the
+    populations of mixed8192 and am8192, against the plain version over two
+    blocks (strong, then weak: the CTCSS channels start open with their
+    windows nearly full, decide, and close): every output and state leaf bit
+    for bit, the pass launched once a block."""
+    specs = _population_8192(population)
+    C, W = len(specs), 2000
+    params = make_channel_params(specs, wave_rate=16000, sample_rate=FS, center_freq=CENTER, fft_size=N, device="cpu")
+    rng = np.random.default_rng(21)
+    ks = ps = active_state(params, C, rng, cuda_device)
+    params = type(params)(*(t.to(cuda_device) for t in params))
+    for blk in range(2):
+        m = torch.from_numpy(np.abs(rng.normal(0, 1.0, (W, C)) + (3.0 if blk == 0 else 0.0)).astype(np.float32)).to(cuda_device)
+        q = torch.from_numpy(rng.normal(0, 0.5, (W, C, 2)).astype(np.float32)).to(cuda_device)
+        before = demod_cuda.CTCSS_LAUNCHES
+        kout = demod_cuda.demod_block_cuda(params, ks, m, q)
+        assert demod_cuda.CTCSS_LAUNCHES == before + 1
+        pout = demod_block(params, ps, m, q)
+        torch.cuda.synchronize()
+        assert_bitwise(pout, kout, f"{population} block {blk}")
+        ks, ps = kout[0], pout[0]
+    ct = params.ctcss_enabled
+    assert int((ps.fast.found + ps.fast.not_found + ps.slow.found + ps.slow.not_found)[ct].min()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ctcss", [True, False])
+def test_ctcss_pass_launches_once_a_block_with_the_banks(cuda_device, with_ctcss):
+    """``CTCSS_LAUNCHES`` rises by one a ``demod_block_cuda`` call with
+    ``with_ctcss`` and by none without it; K1 launches once either way."""
+    specs = [ChannelSpec(**k) for k in SPEC_KW]
+    params = make_channel_params(specs, wave_rate=16000, sample_rate=FS, center_freq=CENTER, fft_size=N, device=cuda_device)
+    st = active_state(params, len(specs), np.random.default_rng(9), cuda_device)
+    m, q = torch.ones(150, len(specs), device=cuda_device), torch.zeros(150, len(specs), 2, device=cuda_device)
+    k1, ct = demod_cuda.LAUNCHES, demod_cuda.CTCSS_LAUNCHES
+    for _ in range(3):
+        demod_cuda.demod_block_cuda(params, st, m, q, with_ctcss=with_ctcss)
+    torch.cuda.synchronize()
+    assert (demod_cuda.LAUNCHES - k1, demod_cuda.CTCSS_LAUNCHES - ct) == (3, 3 if with_ctcss else 0)
 
 
 @pytest.mark.cuda

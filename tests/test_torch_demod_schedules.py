@@ -271,10 +271,10 @@ def test_pipeline_honours_the_environment(monkeypatch):
 
 def test_pair_block_fits_a_hopper_block():
     """The pair block's shared memory: two 32-channel block images, the
-    second 16-byte aligned; with the 64-channel block's ~189 KB it leaves one
-    block an SM, the same grid at the same channel count."""
+    second 16-byte aligned; about the 64-channel block's ~103 KB, the same
+    grid at the same channel count."""
     lib = demod_cuda.host_library()
-    one = 4 * 516 + 32 * (4 * (102 + 100 + 4 * 52 + 2 * 52 + 2 * 32 * 3) + 2 * 52)  # a 32-channel block image
+    one = 4 * 516 + 32 * 4 * (102 + 100 + 2 * 32 * 3)  # a 32-channel block image
     got = demod_cuda.pair_smem_bytes(lib)
     assert got == (one + 15) // 16 * 16 + one
     assert got <= H100_SMEM_PER_BLOCK

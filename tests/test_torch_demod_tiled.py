@@ -122,13 +122,13 @@ def test_tiled_matches_pallas_interpret(unroll):
 
 
 def test_shared_memory_fits_a_hopper_block():
-    """Rings 202 rows, banks 4 x 52, tone tables 2 x 52 (+ 2 x 52 mask
-    bytes), two input tiles of 32 samples (mags and IQ pairs) and the
-    sin/cos table, per channel of the block: the 64-channel block, and the
-    32-channel tile image the pair block holds twice (the second 16-byte
-    aligned)."""
+    """Rings 202 rows and two input tiles of 32 samples (mags and IQ pairs)
+    per channel of the block, and the sin/cos table: the 64-channel block,
+    and the 32-channel tile image the pair block holds twice (the second
+    16-byte aligned).  The Goertzel banks and tone tables are the CTCSS
+    pass's, in its registers."""
     lib = demod_cuda.host_library()
-    per_channel = 4 * (102 + 100 + 4 * 52 + 2 * 52 + 2 * 32 * 3) + 2 * 52
+    per_channel = 4 * (102 + 100 + 2 * 32 * 3)
     got = demod_cuda.smem_bytes(lib)
     assert got == 4 * 516 + demod_cuda.BLOCK_WIDTH * per_channel
     assert got <= H100_SMEM_PER_BLOCK
