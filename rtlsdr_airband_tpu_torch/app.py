@@ -655,8 +655,10 @@ class App:
     def _service_once(self) -> bool:
         worked = False
         if not self._demod_workers:
-            for rt in self.devices:
-                worked |= self._service_device(rt)
+            with trace.span("app.round"):
+                serviced = sum(self._service_device(rt) for rt in self.devices)
+                trace.count("app.devices_serviced", serviced)
+            worked = serviced > 0
         self._service_mixers()
         self._service_outputs_check()
         if self.tui and self._demod_workers:

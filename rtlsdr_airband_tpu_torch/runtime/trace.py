@@ -24,6 +24,9 @@ trace as a process row of its own, "program spans".
 
 The names, a child under its parent:
 
+- ``app.round`` (a pass of ``App._service_once``'s single loop over every
+  device), counter ``app.devices_serviced`` (the devices that handed a
+  block to their pipeline in that pass); in it, a device's:
 - ``app.service`` (a pass of ``App._service_device``): ``app.ring_read``
   (a block's bytes out of the device's ring), then ``Pipeline.feed``'s;
 - ``pipeline.ingest`` (the raw bytes appended to the pending stream, and
